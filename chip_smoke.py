@@ -5,20 +5,36 @@
 
 Phases, one line of output each:
   1. record   — GPU name and power limit (nvidia-smi), torch/CUDA/nvcc;
-  2. build    — compile the CUDA kernels of csrc/ for sm_90a;
+  2. build    — compile the CUDA kernels of csrc/ for sm_90a, one nvcc per
+                source, all started together;
   3. kernels  — each kernel against its plain PyTorch version at the
-                flagship shapes (K1 on the four octaves of a 1936x2584
-                frame, K2 on that frame's 11,616 candidates, K3 on
-                16 pairs x 4 configs x 1024 x 1024 x 128), with CUDA-event
-                times of both;
-  4. slice    — Stitcher.stitch_batch on a seeded 10-frame 1936x2584
-                serpentine (5 down, 1 right, 4 up), with kernels and then
-                with their plain versions: every pair registered within
-                1 px of the truth, both runs equal, every kernel launched.
+                shapes its paths give it, with CUDA-event times of both:
+                K1 and K4 on the four octaves of a 1936x2584 frame, K2 on
+                that frame's 11,616 candidates, K3 on 16 pairs x 4 configs
+                x 1024 x 1024 x 128, K5 on 1024 x 1024 x 128 (the oriented
+                mini pool) and 11,616 x 11,616 x 128 (the fused pool);
+  4. paths    — Stitcher.stitch_batch, with kernels and then with their
+                plain versions, on a seeded 1936x2584 serpentine of 10
+                frames (5 down, 1 right, 4 up) plus, where named, an 11th
+                frame of an unrelated texture:
+                (a) feature_incre, default FeatureConfig (11 frames): the
+                    upright pool registers pairs 0-8, pair 9 goes to the
+                    oriented fallback (K4 over its 2 frames) and fails;
+                (b) feature_incre, auto_upright=False (10 frames): every
+                    frame through the oriented score-map pool;
+                (c) feature_incre, upright over the score-map pool
+                    (fused_select=False, 10 frames);
+                (d) feature, default FeatureConfig (11 frames): whole-image
+                    match (K5) and vote of every pair over the fused pool,
+                    and the oriented retry (K4, a 1024-slot pool) of pair 9
+                    when it fails with some valid matches.
+                Each path: every registered pair within 1 px of the truth,
+                kernel run == plain run, each of its kernels launched.
 Then one JSON line with the per-kernel record and, last, the device line.
 Any failed check raises: the exit code is nonzero and no result line is
 printed.  Float32 throughout: TF32 is off for matmuls and cuDNN.
 """
+import dataclasses
 import json
 import subprocess
 import sys
@@ -40,6 +56,21 @@ def cuda_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def check_top2(torch, name, got, ref):
+    """d0/d1 within 1e-5; the argmin may differ only where the two smallest
+    distances tie within 1e-5.  Returns (max abs err, argmin ties)."""
+    (d0k, i0k, d1k), (d0p, i0p, d1p) = got[:3], ref[:3]
+    torch.testing.assert_close(d0k, d0p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(d1k, d1p, rtol=1e-5, atol=1e-5)
+    differ = i0k != i0p.to(torch.int32)
+    tied = (d1p - d0p) <= 1e-5 * d1p.abs().clamp_min(1e-30)
+    if bool((differ & ~tied).any()):
+        raise AssertionError(f"{name}: {int((differ & ~tied).sum())} "
+                             f"argmins differ without a tie")
+    return (max(float((d0k - d0p).abs().max()),
+                float((d1k - d1p).abs().max())), int(differ.sum()))
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -50,7 +81,6 @@ def main():
     from imagestitch_tpu_torch import _build
     from imagestitch_tpu_torch.core import feature_registration as freg
     from imagestitch_tpu_torch.io.dataset import ImageBatch
-    from imagestitch_tpu_torch.ops.features import detect
     from imagestitch_tpu_torch.ops.kernels import describe as kdesc
     from imagestitch_tpu_torch.ops.kernels import doh as kdoh
     from imagestitch_tpu_torch.ops.kernels import matcher as kmatch
@@ -77,41 +107,46 @@ def main():
     _build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {_build.last_build_seconds:.2f} s) for "
-          f"{[f.name for f in _build.sources()]}")
+          f"{[f.name for f in _build.sources()]} + "
+          f"{[f.name for f in _build.headers()]}")
 
-    # ---- data: the slice's 10-frame serpentine
+    # ---- data: a 10-frame serpentine and one unrelated frame
     h, w = 1936, 2584
     t0 = time.perf_counter()
     positions = synthetic.serpentine_positions(5, 2, (1790.37, 2450.21))
-    frames, truth = synthetic.sequence(7, (h, w), positions)
-    print(f"data: {frames.shape} uint8 serpentine in "
+    seq, truth = synthetic.sequence(7, (h, w), positions)
+    other, _ = synthetic.sequence(99, (h, w), [(0.5, 0.5)])
+    frames = np.concatenate([seq, other])
+    print(f"data: {frames.shape} uint8 (serpentine + 1 unrelated frame) in "
           f"{time.perf_counter() - t0:.1f} s; true offsets "
           f"{[tuple(round(v, 2) for v in t) for t in truth.tolist()]}")
-    cfg = StitchConfig(registration="feature_incre", direction=1,
-                       direct_incre=1, roi_ratio=0.2, color_mode=False,
-                       fuse_method="fadeInAndFadeOut",
-                       features=FeatureConfig(upright=True))
-    dparams = freg._detect_params(cfg)
-    sparams = freg._describe_params(cfg)
+    base = StitchConfig(registration="feature_incre", direction=1,
+                        direct_incre=1, roi_ratio=0.2, color_mode=False,
+                        fuse_method="fadeInAndFadeOut")
+    cfg_up = base.replace(features=FeatureConfig(upright=True))
+    dparams = freg._detect_params(cfg_up)
+    sparams = freg._describe_params(cfg_up)
     gray = torch.as_tensor(frames, device=dev)
 
-    # ---- 3. each kernel against its plain version at the flagship shapes
+    # ---- 3. each kernel against its plain version
     records = []
 
-    # K1: the four octaves of frame 0, as the pool calls it
+    def record(name, source, replaces, err, ms, plain_ms):
+        records.append(dict(name=name, route="cuda",
+                            source=f"imagestitch_tpu_torch/csrc/{source}",
+                            replaces=replaces, max_abs_err=err, ms=ms,
+                            plain_ms=plain_ms))
+
+    # K1 and K4: the four octaves of frame 0, as the pools call them
     spacing = 2.0 ** (1.0 / dparams.n_octave_layers)
-    octaves, xo = [], gray[0].to(torch.float32)
-    for o in range(dparams.n_octaves):
-        if o > 0:
-            if min(xo.shape) < 256:
-                break
-            xo = detect._pool2(xo)
-        octaves.append((xo.contiguous(), max(1, -(-dparams.border // (1 << o))),
-                        freg._ROW_CANDS[min(o, len(freg._ROW_CANDS) - 1)]))
-    k1 = lambda use: [kdoh.doh_select(
-        x, r_cands=rc, threshold=dparams.threshold,
-        n_scales=dparams.n_octave_layers, base_sigma=dparams.base_sigma,
-        border=bo, spacing=spacing, use_kernel=use) for x, bo, rc in octaves]
+    octaves = [(xo.contiguous(), bo,
+                freg._ROW_CANDS[min(o, len(freg._ROW_CANDS) - 1)])
+               for o, xo, bo in freg.octaves(gray[0], dparams)]
+    taps = dict(threshold=dparams.threshold, n_scales=dparams.n_octave_layers,
+                base_sigma=dparams.base_sigma, spacing=spacing)
+    k1 = lambda use: [kdoh.doh_select(x, r_cands=rc, border=bo,
+                                      use_kernel=use, **taps)
+                      for x, bo, rc in octaves]
     err, live_n, moved = 0.0, 0, 0
     for (sk, ck, dk, ek), (sp, cp, dp, ep) in zip(k1(True), k1(False)):
         torch.testing.assert_close(sk, sp, rtol=1e-5, atol=1e-4)
@@ -128,12 +163,24 @@ def main():
     if moved > 1e-4 * live_n or err > 1e-4:
         raise AssertionError(f"doh_select: {moved}/{live_n} live slots moved, "
                              f"max err {err}")
-    records.append(dict(
-        name="doh_select", route="cuda",
-        source="imagestitch_tpu_torch/csrc/doh_select.cu",
-        replaces="imagestitch_tpu/ops/pallas/doh.py:285",
-        max_abs_err=err, ms=cuda_ms(torch, lambda: k1(True)),
-        plain_ms=cuda_ms(torch, lambda: k1(False), iters=5)))
+    record("doh_select", "doh_select.cu",
+           "imagestitch_tpu/ops/pallas/doh.py:285", err,
+           cuda_ms(torch, lambda: k1(True)),
+           cuda_ms(torch, lambda: k1(False), iters=5))
+
+    k4 = lambda use: [kdoh.doh_score_map(x, border=bo, use_kernel=use, **taps)
+                      for x, bo, _ in octaves]
+    err4, live4 = 0.0, 0
+    for (sk, rk), (sp, rp) in zip(k4(True), k4(False)):
+        err4 = max(err4, float((sk - sp).abs().max()),
+                   float((rk - rp).abs().max()))
+        live4 += int((sk > 0).sum())
+    if err4 != 0.0:
+        raise AssertionError(f"doh_score_map: not bit-equal, max err {err4}")
+    record("doh_score_map", "doh_score_map.cu",
+           "imagestitch_tpu/ops/pallas/doh.py:337", err4,
+           cuda_ms(torch, lambda: k4(True)),
+           cuda_ms(torch, lambda: k4(False), iters=5))
 
     # K2: every candidate of frame 0 from the atlas the pool builds
     _, _, _, atlas, r0, c0 = freg.select_candidates(gray[0], dparams)
@@ -143,93 +190,143 @@ def main():
     if dk.shape != (11616, 128):
         raise AssertionError(f"describe_atlas: shape {tuple(dk.shape)}")
     torch.testing.assert_close(dk, dp, rtol=0, atol=1e-5)
-    records.append(dict(
-        name="describe_atlas", route="cuda",
-        source="imagestitch_tpu_torch/csrc/describe.cu",
-        replaces="imagestitch_tpu/ops/pallas/describe.py:226",
-        max_abs_err=float((dk - dp).abs().max()),
-        ms=cuda_ms(torch, lambda: k2(True)),
-        plain_ms=cuda_ms(torch, lambda: k2(False))))
+    record("describe_atlas", "describe.cu",
+           "imagestitch_tpu/ops/pallas/describe.py:226",
+           float((dk - dp).abs().max()), cuda_ms(torch, lambda: k2(True)),
+           cuda_ms(torch, lambda: k2(False)))
 
-    # K3: 16 pair slots x 4 directions at scale 1 from the real pool
-    pool = freg.pool_features(gray, dparams, sparams)
+    # K3: 16 pair slots x 4 directions at scale 1 from the serpentine's pool
+    pool = freg.pool_features(gray[:10], dparams, sparams)
     idx = torch.as_tensor(freg.reg.pad_indices(np.arange(9, dtype=np.int32))[0],
                           dtype=torch.long, device=dev)
-    ratio = cfg.roi_ratio
+    ratio = cfg_up.roi_ratio
     sides = [(freg._select_strip(pool, idx, freg._strip_bounds(d, "first", ratio, h, w), 1024),
               freg._select_strip(pool, idx + 1, freg._strip_bounds(d, "second", ratio, h, w), 1024))
              for d in (1, 2, 3, 4)]
     cat = lambda s, j: torch.cat([x[s][j] for x in sides]).contiguous()
     da, db, vb, rb, cb = cat(0, 3), cat(1, 3), cat(1, 2), cat(1, 0), cat(1, 1)
-    k3 = lambda use: kmatch.top2_l2_coords(da, db, vb, rb, cb, use_kernel=use)
-    (d0k, i0k, d1k, rbk, cbk), (d0p, i0p, d1p, rbp, cbp) = k3(True), k3(False)
     if tuple(da.shape) != (64, 1024, 128):
         raise AssertionError(f"matcher: shape {tuple(da.shape)}")
-    torch.testing.assert_close(d0k, d0p, rtol=1e-5, atol=1e-5)
-    torch.testing.assert_close(d1k, d1p, rtol=1e-5, atol=1e-5)
-    # i0 may differ only where the two smallest distances tie within 1e-5
-    differ = i0k != i0p.to(torch.int32)
-    tied = (d1p - d0p) <= 1e-5 * d1p.abs().clamp_min(1e-30)
-    if bool((differ & ~tied).any()):
-        raise AssertionError(f"matcher: {int((differ & ~tied).sum())} "
-                             f"argmins differ without a tie")
-    same = ~differ
-    if not (torch.equal(rbk[same], rbp[same]) and torch.equal(cbk[same], cbp[same])):
-        raise AssertionError("matcher: matched coordinates differ")
-    records.append(dict(
-        name="top2_l2_coords", route="cuda",
-        source="imagestitch_tpu_torch/csrc/matcher.cu",
-        replaces="imagestitch_tpu/ops/pallas/matcher.py:150",
-        max_abs_err=max(float((d0k - d0p).abs().max()),
-                        float((d1k - d1p).abs().max())),
-        ms=cuda_ms(torch, lambda: k3(True)),
-        plain_ms=cuda_ms(torch, lambda: k3(False))))
+    k3 = lambda use: kmatch.top2_l2_coords(da, db, vb, rb, cb, use_kernel=use)
+    got, ref = k3(True), k3(False)
+    err3, ties3 = check_top2(torch, "top2_l2_coords", got, ref)
+    same = got[1] == ref[1].to(torch.int32)
+    if not (torch.equal(got[3][same], ref[3][same])
+            and torch.equal(got[4][same], ref[4][same])):
+        raise AssertionError("top2_l2_coords: matched coordinates differ")
+    record("top2_l2_coords", "matcher.cu",
+           "imagestitch_tpu/ops/pallas/matcher.py:150", err3,
+           cuda_ms(torch, lambda: k3(True)), cuda_ms(torch, lambda: k3(False)))
+
+    # K5: frames 0 and 1 of the oriented 1024-slot mini pool, and of the
+    # fused 11,616-slot pool (one whole-image pair each)
+    sp_or = dataclasses.replace(sparams, upright=False)
+    mini = freg.pool_features(gray[:2], dparams, sp_or, max_pool=1024)
+    k5_sets = [(m[3][:1].contiguous(), m[3][1:2].contiguous(),
+                (m[2][1:2] > 0).contiguous()) for m in (mini, pool)]
+    k5_ms, k5_plain_ms, err5, ties5 = [], [], 0.0, 0
+    for a, b, v in k5_sets:
+        k5 = lambda use: kmatch.top2_l2(a, b, v, use_kernel=use)
+        e, t = check_top2(torch, "top2_l2", k5(True), k5(False))
+        err5, ties5 = max(err5, e), ties5 + t
+        k5_ms.append(cuda_ms(torch, lambda: k5(True)))
+        k5_plain_ms.append(cuda_ms(torch, lambda: k5(False), iters=5))
+    if [tuple(s[0].shape) for s in k5_sets] != [(1, 1024, 128),
+                                                (1, 11616, 128)]:
+        raise AssertionError(f"top2_l2: shapes {[s[0].shape for s in k5_sets]}")
+    record("top2_l2", "matcher.cu", "imagestitch_tpu/ops/pallas/matcher.py:93",
+           err5, k5_ms[1], k5_plain_ms[1])
     print("kernels: " + "; ".join(
         f"{r['name']} max_abs_err {r['max_abs_err']:.3g}, {r['ms']:.3f} ms "
         f"(plain {r['plain_ms']:.3f} ms)" for r in records)
-        + f"; K1 live slots {live_n}, moved {moved}; K3 argmin ties "
-        f"{int(differ.sum())}")
+        + f"; K1 live slots {live_n}, moved {moved}; K4 live {live4}; K3 "
+        f"argmin ties {ties3}; K5 argmin ties {ties5}, at 1024^2 "
+        f"{k5_ms[0]:.3f} ms (plain {k5_plain_ms[0]:.3f} ms)")
 
-    # ---- 4. the slice end to end
-    batch = ImageBatch(gray=frames, color=None,
-                       files=[f"serpentine-{i}" for i in range(len(frames))])
-    Stitcher(cfg, device=dev).stitch_batch(batch)          # warm-up
-    torch.cuda.synchronize()
-    kdoh.LAUNCHES = kdesc.LAUNCHES = kmatch.LAUNCHES = 0
-    t0 = time.perf_counter()
-    res = Stitcher(cfg, device=dev).stitch_batch(batch)
-    wall = time.perf_counter() - t0
-    launches = {"doh_select": kdoh.LAUNCHES, "describe_atlas": kdesc.LAUNCHES,
-                "top2_l2_coords": kmatch.LAUNCHES}
-    t0 = time.perf_counter()
-    res_plain = Stitcher(cfg.replace(use_kernels=False),
-                         device=dev).stitch_batch(batch)
-    wall_plain = time.perf_counter() - t0
-    report = res[0].report
-    if len(res) != 1 or res[0].file_range != (0, 10):
-        raise AssertionError(f"segments {[r.file_range for r in res]}")
-    if sorted(set(report.directions)) != [1, 2, 3]:
-        raise AssertionError(f"directions {report.directions}")
-    for k, (off, t) in enumerate(zip(res[0].offsets, truth)):
-        if abs(off[0] - t[0]) >= 1 or abs(off[1] - t[1]) >= 1:
-            raise AssertionError(f"pair {k}: offset {off}, truth {t}")
-    if [r.offsets for r in res] != [r.offsets for r in res_plain] or \
-            not all(np.array_equal(a.image, b.image)
-                    for a, b in zip(res, res_plain)):
-        raise AssertionError("kernel run differs from the plain run")
-    pano = res[0].image
-    if pano.dtype != np.uint8 or pano.ndim != 2 or (pano > 0).mean() < 0.9:
-        raise AssertionError(f"panorama {pano.dtype} {pano.shape}")
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched by the main path")
+    # ---- 4. the paths end to end
+    counters = {"doh_select": (kdoh, "LAUNCHES"),
+                "doh_score_map": (kdoh, "SCORE_MAP_LAUNCHES"),
+                "describe_atlas": (kdesc, "LAUNCHES"),
+                "top2_l2_coords": (kmatch, "LAUNCHES"),
+                "top2_l2": (kmatch, "TOP2_LAUNCHES")}
+    total = dict.fromkeys(counters, 0)
+
+    def run_path(label, cfg, n, segments, expect):
+        """Kernel run (counts from 0) and plain run of one path; checks
+        segments, offsets against the truth, kernel == plain, launches."""
+        batch = ImageBatch(gray=frames[:n], color=None,
+                           files=[f"frame-{i}" for i in range(n)])
+        Stitcher(cfg, device=dev).stitch_batch(batch)          # warm-up
+        torch.cuda.synchronize()
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        t0 = time.perf_counter()
+        res = Stitcher(cfg, device=dev).stitch_batch(batch)
+        wall = time.perf_counter() - t0
+        launches = {k: getattr(mod, attr)
+                    for k, (mod, attr) in counters.items()}
+        t0 = time.perf_counter()
+        res_plain = Stitcher(cfg.replace(use_kernels=False),
+                             device=dev).stitch_batch(batch)
+        wall_plain = time.perf_counter() - t0
+        report = res[0].report
+        if [r.file_range for r in res] != segments:
+            raise AssertionError(f"{label}: segments "
+                                 f"{[r.file_range for r in res]}")
+        for k, (off, t) in enumerate(zip(res[0].offsets, truth)):
+            if abs(off[0] - t[0]) >= 1 or abs(off[1] - t[1]) >= 1:
+                raise AssertionError(f"{label}: pair {k}: offset {off}, "
+                                     f"truth {t}")
+        if [r.offsets for r in res] != [r.offsets for r in res_plain] or \
+                [r.report.confidences for r in res] != \
+                [r.report.confidences for r in res_plain] or \
+                not all(np.array_equal(a.image, b.image)
+                        for a, b in zip(res, res_plain)):
+            raise AssertionError(f"{label}: kernel run differs from the "
+                                 f"plain run")
+        pano = res[0].image
+        if pano.dtype != np.uint8 or pano.ndim != 2 or (pano > 0).mean() < 0.9:
+            raise AssertionError(f"{label}: panorama {pano.dtype} {pano.shape}")
+        for name, want in expect.items():
+            if (launches[name] == 0) if want is None else \
+                    (launches[name] != want):
+                raise AssertionError(f"{label}: {name} launched "
+                                     f"{launches[name]} times, want "
+                                     f"{'> 0' if want is None else want}")
+        for k, v in launches.items():
+            total[k] += v
+        print(f"slice {label}: {n} x {h}x{w} frames, {report.num_ok}/"
+              f"{report.num_pairs} pairs, segments "
+              f"{[r.file_range for r in res]}, offsets {report.offsets} "
+              f"(confidence {report.confidences}, directions "
+              f"{report.directions}), panorama {pano.shape}; warm wall "
+              f"{wall:.3f} s with kernels, {wall_plain:.3f} s plain; "
+              f"launches {launches}")
+        return report
+
+    rep = run_path("(a) feature_incre default", base.replace(
+        features=FeatureConfig()), 11, [(0, 10), (10, 11)],
+        {"doh_select": 44, "describe_atlas": 11, "top2_l2_coords": None,
+         "doh_score_map": 8, "top2_l2": 0})
+    if sorted(set(rep.directions[:9])) != [1, 2, 3] or \
+            not rep.confidences[9] > 0:
+        raise AssertionError(f"(a): directions {rep.directions}, "
+                             f"confidences {rep.confidences}")
+    run_path("(b) feature_incre auto_upright=False", base.replace(
+        features=FeatureConfig(auto_upright=False)), 10, [(0, 10)],
+        {"doh_score_map": 40, "top2_l2_coords": None, "doh_select": 0})
+    run_path("(c) feature_incre upright score map", base.replace(
+        features=FeatureConfig(upright=True, fused_select=False)), 10,
+        [(0, 10)], {"doh_score_map": 40, "top2_l2_coords": None,
+                    "doh_select": 0})
+    run_path("(d) feature default", base.replace(
+        registration="feature", features=FeatureConfig()), 11,
+        [(0, 10), (10, 11)],
+        {"top2_l2": None, "doh_select": 44, "describe_atlas": 11})
     for r in records:
-        r["launches"] = launches[r["name"]]
-    print(f"slice: 10 x {h}x{w} frames, 9/9 pairs, offsets {res[0].offsets} "
-          f"(confidence {report.confidences}, directions "
-          f"{report.directions}), panorama {pano.shape}; warm wall "
-          f"{wall:.3f} s with kernels, {wall_plain:.3f} s plain; "
-          f"launches {launches}")
+        r["launches"] = total[r["name"]]
+        if r["launches"] <= 0:
+            raise AssertionError(f"{r['name']} was not launched by the paths")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,17 +1,27 @@
-"""Pooled incremental feature registration (the VFSMS core).
+"""Feature registration: the pooled incremental search and the whole-image
+search.
 
-Port of the pooled ``feature_incre`` path of
-``imagestitch_tpu/core/feature_registration.py`` (reference: Stitcher.py:
-306-367): each frame is detected and described ONCE on the full frame
-(K1 per octave, K2 over the pyramid atlas), then every (direction, scale)
-attempt masks the keypoint pool to its search strip, matches (K3) and takes
-the mode vote, and the host replays the reference's sequential search over
-those results (core/registration.py).
+Port of ``imagestitch_tpu/core/feature_registration.py``:
+  * ``register_sequence_features_incre`` — calculateOffsetForFeatureSearchIncre
+    (reference: Stitcher.py:306-367), the VFSMS core.  Each frame is
+    detected and described ONCE on the full frame, then every
+    (direction, scale) attempt masks the keypoint pool to its search strip,
+    matches (K3) and takes the mode vote, and the host replays the
+    reference's sequential search over those results
+    (core/registration.py).  With ``auto_upright`` the pool is upright and
+    pairs it cannot register retry over an oriented pool of just their
+    frames (``_oriented_fallback_incre``).
+  * ``register_sequence_features`` — calculateOffsetForFeatureSearch
+    (reference: Stitcher.py:260-304): every adjacent pair matched over
+    whole frames (K5) and mode-voted, with the same oriented retry.
 
-Slice of this port: upright SURF over the fused per-row-select pool
-(``fused_select``), the mode vote, no strict-ROI detection and no
-enhancement.  A pair that fails with some signal would go to the oriented
--descriptor fallback, which is not ported yet: it raises.
+Pools, per frame (``pool_features``): the fused per-row-select pool (K1 per
+octave, K2 over the pyramid atlas) for upright SURF with ``fused_select``;
+otherwise the score-map pool (K4 per octave, exact top-k, sub-pixel
+refinement, global top-k, dense describe), upright or oriented.
+
+Slice of this port: SURF with the mode vote, no strict-ROI detection and no
+enhancement; ``check_supported`` raises for the rest.
 """
 from __future__ import annotations
 
@@ -35,9 +45,9 @@ def check_supported(cfg: StitchConfig) -> None:
     for a registration configuration outside the ported slice."""
     f = cfg.features
     todo = []
-    if cfg.registration != "feature_incre":
+    if cfg.registration not in ("feature_incre", "feature"):
         todo.append(f"registration={cfg.registration!r} (ROADMAP Queue 1 "
-                    f"items 13-14)")
+                    f"item 14)")
     if f.strict_roi_detect or cfg.enhance.enabled:
         todo.append("strict_roi_detect / enhance (ROADMAP Queue 1 item 15)")
     if f.box_filter or f.method != "surf":
@@ -46,12 +56,6 @@ def check_supported(cfg: StitchConfig) -> None:
     if cfg.offset_calculate != "mode":
         todo.append(f"offset_calculate={cfg.offset_calculate!r} (ROADMAP "
                     f"Queue 1 item 16)")
-    if not f.fused_select:
-        todo.append("fused_select=False: the score-map pool, kernel K4 "
-                    "(ROADMAP Queue 1 item 8, Queue 2 K4)")
-    if not f.upright and not f.auto_upright:
-        todo.append("oriented descriptors without auto_upright (ROADMAP "
-                    "Queue 1 item 8, Queue 2 K4)")
     if cfg.compute_dtype != "float32":
         todo.append(f"compute_dtype={cfg.compute_dtype!r} (a TPU-only knob "
                     f"on ROADMAP's do-not-port list)")
@@ -113,6 +117,21 @@ def _effective_max_distance(cfg: StitchConfig) -> float:
 _ROW_CANDS = (4, 2, 2, 4)
 
 
+def octaves(img: torch.Tensor, params: detect.DetectParams):
+    """[(octave, image, border)] the pools detect on: the frame as float32,
+    then 2x2 mean pools while the shorter side is at least 256, with the
+    border scaled down (at least 1)."""
+    xo = img.to(torch.float32)
+    out = []
+    for o in range(params.n_octaves):
+        if o > 0:
+            if min(xo.shape) < 256:
+                break
+            xo = detect._pool2(xo)
+        out.append((o, xo, max(1, -(-params.border // (1 << o)))))
+    return out
+
+
 def select_candidates(img: torch.Tensor, params: detect.DetectParams,
                       use_kernels: bool = True):
     """One (H, W) frame -> its candidates and the describe kernel's input.
@@ -125,16 +144,9 @@ def select_candidates(img: torch.Tensor, params: detect.DetectParams,
     slot), the atlas, and each candidate's 18x18 window start (r0, c0) in
     it.
     """
-    x = img.to(torch.float32)
     spacing = 2.0 ** (1.0 / max(params.n_octave_layers, 1))
     octs = []
-    xo = x
-    for o in range(params.n_octaves):
-        if o > 0:
-            if min(xo.shape) < 256:
-                break
-            xo = detect._pool2(xo)
-        bo = max(1, -(-params.border // (1 << o)))
+    for o, xo, bo in octaves(img, params):
         r_c = _ROW_CANDS[min(o, len(_ROW_CANDS) - 1)]
         sc, col, drs, dcs = kdoh.doh_select(
             xo, r_cands=r_c, threshold=params.threshold,
@@ -151,7 +163,8 @@ def select_candidates(img: torch.Tensor, params: detect.DetectParams,
     for (o, xo, sc, col, drs, dcs), xoff in zip(octs, offs):
         ho, r_c = sc.shape
         f = float(1 << o)
-        r_int = torch.arange(ho, device=x.device, dtype=torch.float32)[:, None]
+        r_int = torch.arange(ho, device=img.device,
+                             dtype=torch.float32)[:, None]
         r_loc = r_int + drs
         c_loc = col.to(torch.float32) + dcs
         rows_l.append((r_loc * f + (f - 1) / 2).reshape(-1))
@@ -169,8 +182,9 @@ def select_candidates(img: torch.Tensor, params: detect.DetectParams,
 def detect_describe_image(img: torch.Tensor, params: detect.DetectParams,
                           sparams: describe.DescribeParams,
                           use_kernels: bool = True):
-    """One (H, W) frame -> (rows, cols, scores, descs) pool: candidates by
-    K1 (``select_candidates``), descriptors by K2 from the atlas."""
+    """One (H, W) frame -> (rows, cols, scores, descs) fused pool:
+    candidates by K1 (``select_candidates``), descriptors by K2 from the
+    atlas."""
     rows, cols, scores, atlas, r0, c0 = select_candidates(img, params,
                                                           use_kernels)
     descs = kdesc.describe_atlas(
@@ -179,13 +193,97 @@ def detect_describe_image(img: torch.Tensor, params: detect.DetectParams,
     return rows, cols, scores, descs
 
 
+def _top_k_stable(x: torch.Tensor, k: int):
+    """The ``k`` largest of a 1-D tensor, ties by lower index first (the
+    order of lax.top_k, and of approx_max_k on the CPU)."""
+    s, i = torch.sort(x, descending=True, stable=True)
+    return s[:k], i[:k]
+
+
+def score_map_pool(img: torch.Tensor, max_kp: int,
+                   params: detect.DetectParams,
+                   sparams: describe.DescribeParams,
+                   use_kernels: bool = True):
+    """One (H, W) frame -> (rows, cols, scores, descs) score-map pool of
+    ``max_kp`` slots (port of ``_detect_describe_image_pallas``).
+
+    Per octave: K4's NMS-masked score map and raw response, the top
+    ``octave_budget`` scores (an exact top-k where the TPU used
+    approx_max_k), sub-pixel refinement on the raw response.  Then the
+    global top-``max_kp`` over all octaves' candidates and ONE describe
+    over the pyramid atlas, upright or oriented.  Slots with score <= 0 are
+    empty.
+    """
+    spacing = 2.0 ** (1.0 / max(params.n_octave_layers, 1))
+    cand = []
+    octave_imgs = []
+    for o, xo, bo in octaves(img, params):
+        ho, wo = xo.shape
+        score, raw = kdoh.doh_score_map(
+            xo, threshold=params.threshold, n_scales=params.n_octave_layers,
+            base_sigma=params.base_sigma, border=bo, spacing=spacing,
+            use_kernel=use_kernels)
+        kk = min(detect.octave_budget(max_kp, o, params.octave_topk_decay),
+                 ho * wo)
+        flat_s, flat_i = _top_k_stable(score.reshape(-1), kk)
+        r = flat_i // wo
+        c = flat_i % wo
+        if params.subpixel:
+            dr, dc = detect.refine_subpixel(raw, r, c)
+        else:
+            dr = dc = torch.zeros_like(flat_s)
+        ro = r.to(torch.float32) + dr
+        co = c.to(torch.float32) + dc
+        f = float(1 << o)
+        cand.append((ro * f + (f - 1) / 2, co * f + (f - 1) / 2, flat_s, ro,
+                     co, torch.full_like(r, o)))
+        octave_imgs.append(xo)
+    rows, cols, scores, r_loc, c_loc, oct_ids = (
+        torch.cat([t[i] for t in cand]) for i in range(6))
+    if rows.shape[0] < max_kp:
+        pad = lambda a: F.pad(a, (0, max_kp - a.shape[0]))
+        rows, cols, scores, r_loc, c_loc, oct_ids = (
+            pad(a) for a in (rows, cols, scores, r_loc, c_loc, oct_ids))
+    top_s, top_i = _top_k_stable(scores, max_kp)
+    descs = describe.describe_from_pyramid(
+        octave_imgs, r_loc[top_i], c_loc[top_i], oct_ids[top_i], sparams)
+    return rows[top_i], cols[top_i], top_s, descs
+
+
+def _fused_select_ok(dparams: detect.DetectParams,
+                     sparams: describe.DescribeParams) -> bool:
+    return (dparams.family == "hessian" and not dparams.box_filter
+            and sparams.upright
+            and sparams.family in ("surf", "surf-extended"))
+
+
 def pool_features(images: torch.Tensor, dparams: detect.DetectParams,
-                  sparams: describe.DescribeParams, use_kernels: bool = True):
+                  sparams: describe.DescribeParams, max_pool: int = 6144,
+                  fused_select: bool = True, use_kernels: bool = True):
     """Detect+describe every frame of an (N, H, W) batch, one frame at a
-    time -> (rows, cols, scores) (N, P) and descs (N, P, D)."""
-    per = [detect_describe_image(images[i], dparams, sparams, use_kernels)
-           for i in range(images.shape[0])]
+    time -> (rows, cols, scores) (N, P) and descs (N, P, D).
+
+    Upright SURF with ``fused_select`` takes the fused pool (K1 + K2,
+    P = structural capacity); anything else the score-map pool (K4,
+    P = ``max_pool``), as the JAX package's per-frame dispatch does on the
+    TPU (_pool_features_jit)."""
+    if fused_select and _fused_select_ok(dparams, sparams):
+        one = lambda im: detect_describe_image(im, dparams, sparams,
+                                               use_kernels)
+    else:
+        one = lambda im: score_map_pool(im, max_pool, dparams, sparams,
+                                        use_kernels)
+    per = [one(images[i]) for i in range(images.shape[0])]
     return tuple(torch.stack([p[j] for p in per]) for j in range(4))
+
+
+def _precompute_pool(images: torch.Tensor, cfg: StitchConfig):
+    """The pool ``cfg`` asks for: pool_keypoints slots where the score-map
+    pool runs."""
+    return pool_features(images, _detect_params(cfg), _describe_params(cfg),
+                         max_pool=_capacity(cfg, cfg.features.pool_keypoints),
+                         fused_select=cfg.features.fused_select,
+                         use_kernels=cfg.use_kernels)
 
 
 def _strip_bounds(direction: int, order: str, ratio: float, h: int, w: int):
@@ -349,34 +447,145 @@ def replay_from_pool(pool, n: int, shape: Tuple[int, int], cfg: StitchConfig,
     return out
 
 
+def _oriented_fallback_incre(images: torch.Tensor,
+                             recs: List[reg.PairRegistration],
+                             cfg: StitchConfig, shape: Tuple[int, int]
+                             ) -> List[reg.PairRegistration]:
+    """Re-register the pairs the upright pool could not, over an ORIENTED
+    pool of only the frames those pairs touch.
+
+    Pairs with no valid match displacement at all (confidence 0, the
+    floor-zeroed vote count) are not retried: there is no signal for
+    orientation to rescue.  The replay starts from the direction of the last
+    registered pair before the first retried one."""
+    failed = [k for k, r in enumerate(recs)
+              if not r.ok and r.confidence > 0.0]
+    if not failed:
+        return recs
+    frames = sorted({f for k in failed for f in (k, k + 1)})
+    # for a failed pair k both k and k+1 are in ``frames`` with no integer
+    # between them, so mini-index(k) + 1 == mini-index(k+1) always holds
+    fmap = {f: i for i, f in enumerate(frames)}
+    mini = _precompute_pool(
+        images[torch.as_tensor(frames, dtype=torch.long,
+                               device=images.device)], cfg)
+    h, w = shape
+    _, _, metric = _families(cfg)
+    cache = _PooledCache(mini, cfg, h, w, metric)
+    direction = cfg.direction
+    for k in range(failed[0] - 1, -1, -1):
+        if recs[k].ok and recs[k].direction:
+            direction = recs[k].direction
+            break
+    sub = reg._replay_incremental(
+        len(frames) - 1, cfg.replace(direction=direction), cache,
+        _pool_accept(cfg), _pool_extract, (h, w), offsets_are_full=True,
+        pairs=[fmap[k] for k in failed])
+    out = list(recs)
+    for k, r in zip(failed, sub):
+        out[k] = r
+    return out
+
+
+def _as_images(images, device) -> torch.Tensor:
+    images = torch.as_tensor(images)
+    return images if device is None else images.to(device)
+
+
 def register_sequence_features_incre(images, cfg: StitchConfig, device=None
                                      ) -> List[reg.PairRegistration]:
     """Incremental ROI feature search over an (N, H, W) grayscale batch
     (numpy or tensor) on ``device`` (default: the tensor's own device,
     the CPU for numpy input)."""
     check_supported(cfg)
-    images = torch.as_tensor(images)
-    if device is not None:
-        images = images.to(device)
+    images = _as_images(images, device)
     n, h, w = images.shape
     if n < 2:
         return []
     # upright-first (auto_upright): the upright pool registers translation
-    # -only stages; a pair it cannot register would need the oriented pool
+    # -only stages; the pairs it cannot register retry with orientation
     fast = cfg.features.auto_upright and not cfg.features.upright
     cfg_pool = cfg.replace(features=dataclasses.replace(
         cfg.features, upright=True)) if fast else cfg
-    pool = pool_features(images, _detect_params(cfg_pool),
-                         _describe_params(cfg_pool), cfg.use_kernels)
-    recs = replay_from_pool(pool, n, (h, w), cfg_pool)
-    if fast:
-        # the JAX package retries these pairs with oriented descriptors
-        # (_oriented_fallback_incre); pairs with no valid match at all
-        # (confidence 0) are not retried there either
-        failed = [k for k, r in enumerate(recs)
-                  if not r.ok and r.confidence > 0.0]
-        if failed:
-            raise NotImplementedError(
-                f"pairs {failed} need the oriented-descriptor fallback, not "
-                f"ported yet (ROADMAP Queue 1 item 8, Queue 2 K4)")
+    recs = replay_from_pool(_precompute_pool(images, cfg_pool), n, (h, w),
+                            cfg_pool)
+    if fast and any(not r.ok for r in recs):
+        recs = _oriented_fallback_incre(images, recs, cfg, (h, w))
     return recs
+
+
+def _match_vote_adjacent(pool, ia: np.ndarray, cfg: StitchConfig,
+                         metric: str) -> List[reg.PairRegistration]:
+    """Match + vote frame pairs (ia[k], ia[k] + 1) of a pooled feature set
+    (``ia``: pool indices of each pair's A frame)."""
+    rows, cols, scores, descs = pool
+    valid = scores > 0
+    out: List[reg.PairRegistration] = []
+    max_kp = descs.shape[1]
+    # pairs per matcher call: bounds the plain version's distance matrices
+    pchunk = max(1, (1 << 28) // (4 * max_kp * max_kp))
+    for s in range(0, len(ia), pchunk):
+        sub = torch.as_tensor(ia[s:s + pchunk], dtype=torch.long,
+                              device=descs.device)
+        ti, ok = match.match_batch(
+            descs[sub], descs[sub + 1], valid[sub], valid[sub + 1],
+            cfg.features.search_ratio, _effective_max_distance(cfg), metric,
+            use_kernel=cfg.use_kernels)
+        d_row, d_col, v = vote.displacement_from_matches(
+            rows[sub], cols[sub], rows[sub + 1], cols[sub + 1], ti, ok)
+        dr, dc, nv, av = (t.cpu().numpy()
+                          for t in vote.mode_vote_batch(d_row, d_col, v))
+        for k in range(len(sub)):
+            okk = bool(nv[k] >= cfg.offset_evaluate)
+            out.append(reg.PairRegistration(
+                ok=okk,
+                offset=(int(dr[k]), int(dc[k])) if okk else (0, 0),
+                offset_subpix=((float(dr[k]), float(dc[k])) if okk
+                               else (0.0, 0.0)),
+                direction=cfg.direction if okk else 0,
+                scale=0,
+                # confidence: floor-zeroed votes (0 = no valid matches)
+                confidence=float(nv[k]) if av[k] else 0.0, attempts=1))
+    return out
+
+
+def register_sequence_features(images, cfg: StitchConfig, device=None
+                               ) -> List[reg.PairRegistration]:
+    """Whole-image feature search for every adjacent pair of an (N, H, W)
+    grayscale batch (non-incremental).
+
+    Each frame is detected and described once (max_keypoints slots where
+    the score-map pool runs); adjacent pairs are then matched and
+    mode-voted.  With ``auto_upright`` the pool is upright first, and pairs
+    that fail with some valid match retry over an oriented pool of their
+    frames."""
+    check_supported(cfg)
+    images = _as_images(images, device)
+    n = images.shape[0]
+    if n < 2:
+        return []
+    _, _, metric = _families(cfg)
+    dparams = _detect_params(cfg)
+    sparams = _describe_params(cfg)
+    max_kp = _capacity(cfg, cfg.features.max_keypoints)
+    fast = cfg.features.auto_upright and not cfg.features.upright
+    sparams_fast = dataclasses.replace(sparams, upright=True) if fast \
+        else sparams
+    pool_of = lambda ims, sp: pool_features(
+        ims, dparams, sp, max_pool=max_kp,
+        fused_select=cfg.features.fused_select, use_kernels=cfg.use_kernels)
+    out = _match_vote_adjacent(pool_of(images, sparams_fast), np.arange(n - 1),
+                               cfg, metric)
+    failed = [k for k, r in enumerate(out)
+              if not r.ok and r.confidence > 0.0]
+    if fast and failed:
+        frames = sorted({f for k in failed for f in (k, k + 1)})
+        fmap = {f: i for i, f in enumerate(frames)}
+        mini = pool_of(images[torch.as_tensor(frames, dtype=torch.long,
+                                              device=images.device)], sparams)
+        sub = _match_vote_adjacent(mini,
+                                   np.asarray([fmap[k] for k in failed]),
+                                   cfg, metric)
+        for k, r in zip(failed, sub):
+            out[k] = r
+    return out

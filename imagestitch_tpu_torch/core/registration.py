@@ -127,3 +127,10 @@ def register_sequence_features_incre(images, cfg: StitchConfig,
     from . import feature_registration
     return feature_registration.register_sequence_features_incre(
         images, cfg, device=device)
+
+
+def register_sequence_features(images, cfg: StitchConfig,
+                               device=None) -> List[PairRegistration]:
+    from . import feature_registration
+    return feature_registration.register_sequence_features(
+        images, cfg, device=device)

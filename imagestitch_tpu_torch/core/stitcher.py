@@ -1,10 +1,11 @@
 """Sequence stitching orchestration.
 
 Port of the single-device path of ``imagestitch_tpu/core/stitcher.py``:
-``register`` (pooled incremental feature search), ``stitch_batch``
-(flowStitchWithMutiple semantics, reference Stitcher.py:96-127: register
-every pair up front, split into segments at failed pairs, compose each
-segment) and ``stitch_files`` with serial decode.
+``register`` (pooled incremental or whole-image feature search),
+``stitch_batch`` (flowStitchWithMutiple semantics, reference
+Stitcher.py:96-127: register every pair up front, split into segments at
+failed pairs, compose each segment) and ``stitch_files`` with serial
+decode.
 """
 from __future__ import annotations
 
@@ -71,8 +72,14 @@ class Stitcher:
     def register(self, gray) -> List[registration.PairRegistration]:
         """Register all adjacent pairs of an (N, H, W) grayscale batch."""
         cfg = self.cfg.replace(direction=self._direction)
-        recs = registration.register_sequence_features_incre(
-            gray, cfg, device=self.device)
+        if cfg.registration == "feature_incre":
+            recs = registration.register_sequence_features_incre(
+                gray, cfg, device=self.device)
+        elif cfg.registration == "feature":
+            recs = registration.register_sequence_features(
+                gray, cfg, device=self.device)
+        else:
+            raise ValueError(cfg.registration)
         # persist the last successful direction across sequences
         for r in reversed(recs):
             if r.ok and r.direction:

@@ -18,7 +18,8 @@
 //  * one block of 8 warps owns 8 image rows over the full width, walking
 //    the width in 128-column chunks (a 2584-wide row of 8 + halo rows would
 //    not fit in shared memory);
-//  * per chunk the block stages the edge-clamped input tile once (clamped
+//  * per chunk the block runs the response stage shared with K4
+//    (doh_common.cuh): it stages the edge-clamped input tile once (clamped
 //    indices are the edge padding of doh.py:278-279), runs the row
 //    correlations into shared memory, then the column correlations, and
 //    keeps the scale max of the response on rows/cols -1..+1 beyond the
@@ -35,29 +36,17 @@
 #include <cuda_runtime.h>
 #include <climits>
 
+#include "doh_common.cuh"
+
 namespace {
 
-constexpr int kTR = 8;                 // image rows per block, one warp each
-constexpr int kTC = 128;               // columns per chunk
-constexpr int kThreads = kTR * 32;
-constexpr int kMaxScales = 4;
-constexpr int kMaxRadius = 10;
-constexpr int kMaxTaps = 2 * kMaxRadius + 1;
+using doh::DohParams;
+using doh::kRC;
+using doh::kTC;
+using doh::kThreads;
+using doh::kTR;
 constexpr int kMaxCands = 8;
 constexpr unsigned kFull = 0xffffffffu;
-
-struct DohParams {
-  int n_scales;
-  int radius[kMaxScales];
-  float s4[kMaxScales];                // sigma^4 per scale
-  float g[kMaxScales][kMaxTaps];       // Gaussian
-  float dg[kMaxScales][kMaxTaps];      // first derivative
-  float ddg[kMaxScales][kMaxTaps];     // second derivative
-};
-
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
-}
 
 // strict (score desc, column asc) order
 __device__ __forceinline__ bool better(float sa, int ca, float sb, int cb) {
@@ -77,13 +66,9 @@ doh_select_kernel(const float* __restrict__ img, int h, int w, int r_cands,
                   float* __restrict__ out_sc, int* __restrict__ out_col,
                   float* __restrict__ out_dr, float* __restrict__ out_dc) {
   extern __shared__ float smem[];
-  const int in_rows = kTR + 2 + 2 * halo;
-  const int in_cols = kTC + 2 + 2 * halo;
-  const int rc = kTC + 2;                              // response tile width
-  float* s_in = smem;                                  // in_rows x in_cols
-  float* s_l = s_in + in_rows * in_cols;               // 3 x (kTR+2) x in_cols
-  float* s_resp = s_l + 3 * (kTR + 2) * in_cols;       // (kTR+2) x rc
-  float* s_sc = s_resp + (kTR + 2) * rc;               // kTR x kTC
+  float* stage = smem;                                 // doh::stage_floats
+  float* s_resp = stage + doh::stage_floats(halo);     // (kTR+2) x kRC
+  float* s_sc = s_resp + (kTR + 2) * kRC;              // kTR x kTC
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int r0 = blockIdx.x * kTR;
@@ -95,72 +80,16 @@ doh_select_kernel(const float* __restrict__ img, int h, int w, int r_cands,
   int n_best = 0;
 
   for (int c0 = 0; c0 < w; c0 += kTC) {
-    // stage image rows r0-1-halo.., cols c0-1-halo.. (edge-clamped)
-    for (int e = tid; e < in_rows * in_cols; e += kThreads) {
-      int i = e / in_cols, j = e - i * in_cols;
-      int gr = clampi(r0 - 1 - halo + i, 0, h - 1);
-      int gc = clampi(c0 - 1 - halo + j, 0, w - 1);
-      s_in[e] = img[(size_t)gr * w + gc];
-    }
-    __syncthreads();
-
-    for (int s = 0; s < p.n_scales; ++s) {
-      const int rs = p.radius[s], nt = 2 * rs + 1, off = halo - rs;
-      const int l_cols = kTC + 2 + 2 * rs;
-      // row correlations: lxx_r (g), lyy_r (ddg), lxy_r (dg)
-      for (int e = tid; e < (kTR + 2) * l_cols; e += kThreads) {
-        int i = e / l_cols, jj = e - i * l_cols;
-        const float* src = s_in + (i + off) * in_cols + jj + off;
-        float v = src[0];
-        float a = __fmul_rn(v, p.g[s][0]);
-        float b = __fmul_rn(v, p.ddg[s][0]);
-        float c = __fmul_rn(v, p.dg[s][0]);
-        for (int t = 1; t < nt; ++t) {
-          v = src[t * in_cols];
-          a = __fadd_rn(a, __fmul_rn(v, p.g[s][t]));
-          b = __fadd_rn(b, __fmul_rn(v, p.ddg[s][t]));
-          c = __fadd_rn(c, __fmul_rn(v, p.dg[s][t]));
-        }
-        s_l[(0 * (kTR + 2) + i) * in_cols + jj] = a;
-        s_l[(1 * (kTR + 2) + i) * in_cols + jj] = b;
-        s_l[(2 * (kTR + 2) + i) * in_cols + jj] = c;
-      }
-      __syncthreads();
-      // column correlations -> DoH -> scale max
-      for (int e = tid; e < (kTR + 2) * rc; e += kThreads) {
-        int i = e / rc, j = e - i * rc;
-        const float* la = s_l + (0 * (kTR + 2) + i) * in_cols + j;
-        const float* lb = s_l + (1 * (kTR + 2) + i) * in_cols + j;
-        const float* lc = s_l + (2 * (kTR + 2) + i) * in_cols + j;
-        float xx = __fmul_rn(la[0], p.ddg[s][0]);
-        float yy = __fmul_rn(lb[0], p.g[s][0]);
-        float xy = __fmul_rn(lc[0], p.dg[s][0]);
-        for (int t = 1; t < nt; ++t) {
-          xx = __fadd_rn(xx, __fmul_rn(la[t], p.ddg[s][t]));
-          yy = __fadd_rn(yy, __fmul_rn(lb[t], p.g[s][t]));
-          xy = __fadd_rn(xy, __fmul_rn(lc[t], p.dg[s][t]));
-        }
-        float r = __fmul_rn(p.s4[s],
-                            __fsub_rn(__fmul_rn(xx, yy), __fmul_rn(xy, xy)));
-        s_resp[e] = (s == 0) ? r : fmaxf(s_resp[e], r);
-      }
-      __syncthreads();
-    }
+    doh::response_tile(img, h, w, r0, c0, halo, p, stage, s_resp);
 
     // NMS (center >= its 8 neighbours), border, threshold
     for (int e = tid; e < kTR * kTC; e += kThreads) {
       int i = e / kTC, j = e - i * kTC;
       int gr = r0 + i, gc = c0 + j;
       float sc = 0.0f;
-      if (gr < h && gc < w) {
-        const float* q = s_resp + (i + 1) * rc + (j + 1);
-        float cen = q[0];
-        float m = fmaxf(fmaxf(fmaxf(q[-rc - 1], q[-rc]), fmaxf(q[-rc + 1], q[-1])),
-                        fmaxf(fmaxf(q[1], q[rc - 1]), fmaxf(q[rc], q[rc + 1])));
-        bool inside = gr >= border && gr < h - border &&
-                      gc >= border && gc < w - border;
-        if (cen >= m && inside && cen > threshold) sc = cen;
-      }
+      if (gr < h && gc < w)
+        sc = doh::nms_score(s_resp + (i + 1) * kRC + (j + 1), gr, gc, h, w,
+                            border, threshold);
       s_sc[e] = sc;
     }
     __syncthreads();
@@ -183,10 +112,10 @@ doh_select_kernel(const float* __restrict__ img, int h, int w, int r_cands,
           if (better(os, oc, bs, bc)) { bs = os; bc = oc; }
         }
         if (!(bs > 0.0f)) break;                       // warp-uniform
-        const float* q = s_resp + (warp + 1) * rc + (bc + 1);
+        const float* q = s_resp + (warp + 1) * kRC + (bc + 1);
         cs[nc] = bs;
         cc[nc] = c0 + bc;
-        cdr[nc] = axis_off(q[-rc], q[rc], q[0]);
+        cdr[nc] = axis_off(q[-kRC], q[kRC], q[0]);
         cdc[nc] = axis_off(q[-1], q[1], q[0]);
         ++nc;
         if (lane == (bc & 31)) srow[bc] = 0.0f;        // the owning lane
@@ -234,33 +163,14 @@ extern "C" int doh_select_launch(const float* img, int h, int w, int r_cands,
                                  const int* radii, const float* s4,
                                  const float* taps, float* sc, int* col,
                                  float* dr, float* dc, void* stream) {
-  if (h < 1 || w < 1 || n_scales < 1 || n_scales > kMaxScales ||
-      r_cands < 1 || r_cands > kMaxCands)
+  DohParams p;
+  int halo = doh::fill_params(p, n_scales, radii, s4, taps);
+  if (h < 1 || w < 1 || halo < 0 || r_cands < 1 || r_cands > kMaxCands)
     return (int)cudaErrorInvalidValue;
-  DohParams p = {};
-  p.n_scales = n_scales;
-  int halo = 0;
-  for (int s = 0; s < n_scales; ++s) {
-    if (radii[s] < 1 || radii[s] > kMaxRadius) return (int)cudaErrorInvalidValue;
-    p.radius[s] = radii[s];
-    p.s4[s] = s4[s];
-    halo = radii[s] > halo ? radii[s] : halo;
-    for (int t = 0; t < kMaxTaps; ++t) {
-      p.g[s][t] = taps[(s * 3 + 0) * kMaxTaps + t];
-      p.dg[s][t] = taps[(s * 3 + 1) * kMaxTaps + t];
-      p.ddg[s][t] = taps[(s * 3 + 2) * kMaxTaps + t];
-    }
-  }
-  int in_rows = kTR + 2 + 2 * halo, in_cols = kTC + 2 + 2 * halo;
-  size_t smem = sizeof(float) * ((size_t)in_rows * in_cols +
-                                 3 * (kTR + 2) * in_cols +
-                                 (kTR + 2) * (kTC + 2) + kTR * kTC);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        doh_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
+  size_t smem = sizeof(float) * ((size_t)doh::stage_floats(halo) +
+                                 (kTR + 2) * kRC + kTR * kTC);
+  cudaError_t e = doh::allow_smem(doh_select_kernel, smem);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid((h + kTR - 1) / kTR);
   doh_select_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       img, h, w, r_cands, threshold, border, halo, p, sc, col, dr, dc);

@@ -1,7 +1,13 @@
-// K3: fused all-pairs squared-L2 distance + top-2 + matched coordinates.
+// K3: fused all-pairs squared-L2 distance + top-2 + matched coordinates,
+// and K5: the same top-2 without the coordinates.
 //
-// Replaces imagestitch_tpu/ops/pallas/matcher.py::top2_l2_coords (the Pallas
-// call at matcher.py:150, kernel body _matcher_coords_kernel at :47).
+// Replaces imagestitch_tpu/ops/pallas/matcher.py::top2_l2_coords (K3, the
+// Pallas call at matcher.py:150, kernel body _matcher_coords_kernel at :47)
+// and ::top2_l2 (K5, the Pallas call at matcher.py:93, kernel body
+// _matcher_kernel at :28).  K5 is the same kernel with null coordinate
+// pointers: matcher_top2_launch.  The TPU kernel took only query counts
+// that are multiples of its 256-row tile; here any Ka and Kb go, the ragged
+// last query and train tiles masked.
 //
 // What bounds it on an H100: FP32 arithmetic.  A replay dispatch matches
 // pairs x configs batches of 1024 x 1024 descriptors of 128 floats
@@ -22,7 +28,11 @@
 //    '<' (first-index ties, d1 = d0 on exact ties), then the 16 threads of a
 //    query row merge with an index-aware rule, giving exactly the first
 //    argmin and the min over the other columns, as match._top2_min does;
-//  * the matched train row and column coordinates are read at i0.
+//  * the matched train row and column coordinates are read at i0 (K3
+//    only: K5 passes null rows_b/cols_b/out_rb/out_cb and skips the read).
+// K5 on the whole-image path matches 11,616 x 11,616 descriptors of one
+// pair (34.6 GFLOP) in only 182 query blocks for 132 SMs, so 50 SMs get
+// two blocks and the rest one: a later PR can split the train axis.
 // With no valid train row a query gets d0 = d1 = 3.4e38 and i0 = 0, the
 // argmin of an all-masked row.
 #include <cuda_runtime.h>
@@ -158,8 +168,10 @@ matcher_kernel(const float* __restrict__ da, const float* __restrict__ db,
       out_d0[o] = d0[i];
       out_i0[o] = i0[i];
       out_d1[o] = d1[i];
-      out_rb[o] = rows_b[m];
-      out_cb[o] = cols_b[m];
+      if (out_rb != nullptr) {
+        out_rb[o] = rows_b[m];
+        out_cb[o] = cols_b[m];
+      }
     }
   }
 }
@@ -179,4 +191,12 @@ extern "C" int matcher_launch(const float* da, const float* db,
   matcher_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       da, db, valid_b, rows_b, cols_b, ka, kb, d, d0, i0, d1, rb_sel, cb_sel);
   return (int)cudaGetLastError();
+}
+
+extern "C" int matcher_top2_launch(const float* da, const float* db,
+                                   const unsigned char* valid_b, int batch,
+                                   int ka, int kb, int d, float* d0, int* i0,
+                                   float* d1, void* stream) {
+  return matcher_launch(da, db, valid_b, nullptr, nullptr, batch, ka, kb, d,
+                        d0, i0, d1, nullptr, nullptr, stream);
 }

@@ -1,10 +1,12 @@
 """Batched descriptor matching: squared-L2 kNN(2) + Lowe ratio.
 
-Port of ``imagestitch_tpu/ops/features/match.py:29-111`` (the L2 metric of
+Port of ``imagestitch_tpu/ops/features/match.py:29-136`` (the L2 metric of
 the reference's BruteForce matcher, ImageUtility.py:278-296).  The pooled
-path calls ``match_batch_coords``, which goes through the matcher kernel
-(``ops/kernels/matcher.py``) and also returns each query's matched train
-coordinates.  The ratio test runs on squared distances with ratio^2.
+replay calls ``match_batch_coords``, which goes through the K3 matcher
+kernel and also returns each query's matched train coordinates; the
+whole-image path calls ``match_batch``, which goes through K5
+(``ops/kernels/matcher.py``).  The ratio test runs on squared distances
+with ratio^2.
 """
 from __future__ import annotations
 
@@ -57,6 +59,26 @@ def ratio_ok(valid_a: torch.Tensor, d0: torch.Tensor, d1: torch.Tensor,
     return valid_a & (d0 < (ratio * ratio) * d1) & (d1 < _BIG)
 
 
+def _require_l2(metric: str) -> None:
+    if metric != "l2":
+        raise NotImplementedError(
+            f"metric {metric!r}: only L2 is ported (the Hamming metric is "
+            f"ROADMAP Queue 1 item 17)")
+
+
+def match_batch(da: torch.Tensor, db: torch.Tensor, valid_a: torch.Tensor,
+                valid_b: torch.Tensor, ratio: float, max_distance: float,
+                metric: str = "l2", use_kernel: bool = True):
+    """(P, K, D) descriptors -> (train_idx, ok), each (P, K).
+
+    ``max_distance`` serves the Hamming metric, which is not ported yet.
+    """
+    from ..kernels import matcher
+    _require_l2(metric)
+    d0, i0, d1 = matcher.top2_l2(da, db, valid_b, use_kernel=use_kernel)
+    return i0, ratio_ok(valid_a, d0, d1, ratio)
+
+
 def match_batch_coords(da: torch.Tensor, db: torch.Tensor,
                        valid_a: torch.Tensor, valid_b: torch.Tensor,
                        rows_b: torch.Tensor, cols_b: torch.Tensor,
@@ -67,10 +89,7 @@ def match_batch_coords(da: torch.Tensor, db: torch.Tensor,
     ``max_distance`` serves the Hamming metric, which is not ported yet.
     """
     from ..kernels import matcher
-    if metric != "l2":
-        raise NotImplementedError(
-            "only the L2 metric is ported (ROADMAP Queue 1, other "
-            "detector families item)")
+    _require_l2(metric)
     d0, i0, d1, rb_sel, cb_sel = matcher.top2_l2_coords(
         da, db, valid_b, rows_b, cols_b, use_kernel=use_kernel)
     return i0, ratio_ok(valid_a, d0, d1, ratio), rb_sel, cb_sel

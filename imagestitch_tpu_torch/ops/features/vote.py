@@ -1,6 +1,7 @@
 """Displacement voting: the reference's 2-D mode rule.
 
-Port of ``imagestitch_tpu/ops/features/vote.py:25-127``, exact semantics of
+Port of ``imagestitch_tpu/ops/features/vote.py:25-127`` (the mode vote, the
+sub-pixel refinement and the displacements), exact semantics of
 ``getOffsetByMode`` (reference: ImageUtility.py:139-178):
 
   * per-match displacement = int-truncated keypoint difference (toward zero),
@@ -19,6 +20,15 @@ import torch
 _OFF = 1 << 12          # supports |displacement| < 4096 (image edge < 4K px)
 _SPAN = 1 << 13
 _INVALID_BASE = _SPAN * _SPAN
+
+
+def displacement_from_matches(rows_a, cols_a, rows_b, cols_b, train_idx,
+                              valid):
+    """Truncated (drow, dcol) per match slot: A keypoint q against B
+    keypoint train_idx[q] (reference ImageUtility.py:153-161)."""
+    ti = train_idx.long()
+    return displacement_from_coords(rows_a, cols_a, rows_b.gather(-1, ti),
+                                    cols_b.gather(-1, ti), valid)
 
 
 def displacement_from_coords(rows_a, cols_a, rb_sel, cb_sel, valid):

@@ -1,18 +1,22 @@
-"""K1: fused multi-scale DoH response + NMS + sub-pixel + per-row top-R.
+"""The two DoH kernels: K1 ``doh_select`` and K4 ``doh_score_map``.
 
-Port of ``imagestitch_tpu/ops/pallas/doh.py::doh_select``.  The CUDA kernel
-is ``csrc/doh_select.cu``; ``doh_select_plain`` is the same function in
-plain PyTorch.  ``doh_select`` launches the kernel for a CUDA tensor (or the
-plain version when ``use_kernel`` is False) and takes the plain version for
-a CPU tensor.
+Ports of ``imagestitch_tpu/ops/pallas/doh.py::doh_select`` (K1: response +
+NMS + sub-pixel + per-row top-R, CUDA in ``csrc/doh_select.cu``) and
+``::doh_score_map`` (K4: response + NMS written as a full score map plus
+the raw response, CUDA in ``csrc/doh_score_map.cu``); both share the
+response stage ``csrc/doh_common.cuh``.  ``doh_select_plain`` and
+``doh_score_map_plain`` are the same functions in plain PyTorch.  Each
+wrapper launches its kernel for a CUDA tensor (or the plain version when
+``use_kernel`` is False) and takes the plain version for a CPU tensor.
 
-Semantics kept from the Pallas kernel:
+Semantics kept from the Pallas kernels:
   * the image is edge-padded; the response is evaluated on rows -1..H and
     columns -1..W, so the 3x3 NMS ring and the sub-pixel neighbours at the
     border read responses of the edge-padded image, not -inf;
   * the sub-pixel step reads the raw (pre-NMS) scale-max response;
-  * per row, the top ``r_cands`` NMS survivors by (score desc, column asc);
-    slots with score <= 0 are empty and their other fields are arbitrary.
+  * K1: per row, the top ``r_cands`` NMS survivors by (score desc, column
+    asc); slots with score <= 0 are empty and their other fields are
+    arbitrary.
 """
 from __future__ import annotations
 
@@ -25,10 +29,12 @@ import torch
 from ..features.detect import (_corr_cols, _corr_rows, _edge_pad,
                                _gauss_kernels, axis_offset)
 
-#: launches of the CUDA kernel since the counter was last set to 0
+#: launches of the K1 kernel since the counter was last set to 0
 LAUNCHES = 0
-MAX_SCALES = 4      # csrc/doh_select.cu kMaxScales
-MAX_RADIUS = 10     # csrc/doh_select.cu kMaxRadius
+#: launches of the K4 kernel since the counter was last set to 0
+SCORE_MAP_LAUNCHES = 0
+MAX_SCALES = 4      # csrc/doh_common.cuh kMaxScales
+MAX_RADIUS = 10     # csrc/doh_common.cuh kMaxRadius
 MAX_CANDS = 8       # csrc/doh_select.cu kMaxCands
 
 
@@ -61,6 +67,28 @@ def _response_ring(x: torch.Tensor, taps) -> torch.Tensor:
     return resp
 
 
+def _nms_score(resp: torch.Tensor, border: int, threshold: float
+               ) -> torch.Tensor:
+    """(H+2, W+2) response ring -> (H, W) score: the centre response where
+    it is >= its 8 neighbours, inside the border and above the threshold,
+    else 0."""
+    h, w = resp.shape[0] - 2, resp.shape[1] - 2
+    center = resp[1:1 + h, 1:1 + w]
+    m = None
+    for di in range(3):
+        for dj in range(3):
+            if di == 1 and dj == 1:
+                continue
+            cand = resp[di:di + h, dj:dj + w]
+            m = cand if m is None else torch.maximum(m, cand)
+    gr = torch.arange(h, device=resp.device)[:, None]
+    gc = torch.arange(w, device=resp.device)[None, :]
+    inside = ((gr >= border) & (gr < h - border)
+              & (gc >= border) & (gc < w - border))
+    return torch.where((center >= m) & inside & (center > threshold),
+                       center, torch.zeros_like(center))
+
+
 def doh_select_plain(image: torch.Tensor, r_cands: int = 4,
                      threshold: float = 10.0, n_scales: int = 3,
                      base_sigma: float = 1.2, border: int = 8,
@@ -72,19 +100,8 @@ def doh_select_plain(image: torch.Tensor, r_cands: int = 4,
     h, w = x.shape
     resp = _response_ring(x, _scale_taps(base_sigma, n_scales, spacing))
     center = resp[1:1 + h, 1:1 + w]
-    m = None
-    for di in range(3):
-        for dj in range(3):
-            if di == 1 and dj == 1:
-                continue
-            cand = resp[di:di + h, dj:dj + w]
-            m = cand if m is None else torch.maximum(m, cand)
-    gr = torch.arange(h, device=x.device)[:, None]
+    score = _nms_score(resp, border, threshold)
     gc = torch.arange(w, device=x.device)[None, :]
-    inside = ((gr >= border) & (gr < h - border)
-              & (gc >= border) & (gc < w - border))
-    score = torch.where((center >= m) & inside & (center > threshold),
-                        center, torch.zeros_like(center))
 
     drm = axis_offset(resp[0:h, 1:1 + w], resp[2:2 + h, 1:1 + w], center)
     dcm = axis_offset(resp[1:1 + h, 0:w], resp[1:1 + h, 2:2 + w], center)
@@ -105,26 +122,34 @@ def doh_select_plain(image: torch.Tensor, r_cands: int = 4,
             torch.stack(dcs, 1))
 
 
-def _launch(x: torch.Tensor, r_cands: int, threshold: float, n_scales: int,
-            base_sigma: float, border: int, spacing: float):
-    from ... import _build
-    global LAUNCHES
+def _tap_tables(n_scales: int, base_sigma: float, spacing: float, name: str):
+    """(radii, sigma^4, taps) numpy tables in the layout of
+    ``doh::fill_params`` (csrc/doh_common.cuh)."""
     if not 1 <= n_scales <= MAX_SCALES:
-        raise ValueError(f"doh_select kernel: n_scales={n_scales} not in "
+        raise ValueError(f"{name} kernel: n_scales={n_scales} not in "
                          f"[1, {MAX_SCALES}]")
-    if not 1 <= r_cands <= MAX_CANDS:
-        raise ValueError(f"doh_select kernel: r_cands={r_cands} not in "
-                         f"[1, {MAX_CANDS}]")
     taps = _scale_taps(base_sigma, n_scales, spacing)
     radii = np.asarray([t[3] for t in taps], np.int32)
     if radii.max() > MAX_RADIUS:
-        raise ValueError(f"doh_select kernel: tap radius {radii.max()} > "
+        raise ValueError(f"{name} kernel: tap radius {radii.max()} > "
                          f"{MAX_RADIUS}")
     s4 = np.asarray([t[4] ** 4 for t in taps], np.float32)
     table = np.zeros((n_scales, 3, 2 * MAX_RADIUS + 1), np.float32)
     for s, (g, dg, ddg, radius, _) in enumerate(taps):
         for k, arr in enumerate((g, dg, ddg)):
             table[s, k, :2 * radius + 1] = arr
+    return radii, s4, table
+
+
+def _launch(x: torch.Tensor, r_cands: int, threshold: float, n_scales: int,
+            base_sigma: float, border: int, spacing: float):
+    from ... import _build
+    global LAUNCHES
+    if not 1 <= r_cands <= MAX_CANDS:
+        raise ValueError(f"doh_select kernel: r_cands={r_cands} not in "
+                         f"[1, {MAX_CANDS}]")
+    radii, s4, table = _tap_tables(n_scales, base_sigma, spacing,
+                                   "doh_select")
     h, w = x.shape
     out_f = lambda: torch.empty((h, r_cands), dtype=torch.float32,
                                 device=x.device)
@@ -160,3 +185,57 @@ def doh_select(image: torch.Tensor, r_cands: int = 4, threshold: float = 10.0,
                        spacing)
     return doh_select_plain(image, r_cands, threshold, n_scales, base_sigma,
                             border, spacing)
+
+
+def doh_score_map_plain(image: torch.Tensor, threshold: float = 10.0,
+                        n_scales: int = 3, base_sigma: float = 1.2,
+                        border: int = 8, spacing: float = 1.6
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch ``doh_score_map``: (H, W) -> (score, raw), each (H, W)
+    float32."""
+    x = image.to(torch.float32)
+    h, w = x.shape
+    resp = _response_ring(x, _scale_taps(base_sigma, n_scales, spacing))
+    return _nms_score(resp, border, threshold), resp[1:1 + h, 1:1 + w]
+
+
+def _launch_score_map(x: torch.Tensor, threshold: float, n_scales: int,
+                      base_sigma: float, border: int, spacing: float):
+    from ... import _build
+    global SCORE_MAP_LAUNCHES
+    radii, s4, table = _tap_tables(n_scales, base_sigma, spacing,
+                                   "doh_score_map")
+    h, w = x.shape
+    score = torch.empty((h, w), dtype=torch.float32, device=x.device)
+    raw = torch.empty((h, w), dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    err = lib.doh_score_map_launch(
+        x.data_ptr(), h, w, float(threshold), border, n_scales,
+        radii.ctypes.data, s4.ctypes.data, table.ctypes.data,
+        score.data_ptr(), raw.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "doh_score_map")
+    SCORE_MAP_LAUNCHES += 1
+    return score, raw
+
+
+def doh_score_map(image: torch.Tensor, threshold: float = 10.0,
+                  n_scales: int = 3, base_sigma: float = 1.2,
+                  border: int = 8, spacing: float = 1.6,
+                  use_kernel: bool = True
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(H, W) image -> (score, raw): the NMS-masked DoH score map (0 where
+    suppressed, on the border or under the threshold) and the raw scale-max
+    response for sub-pixel refinement, each (H, W) float32.  A CUDA tensor
+    runs the CUDA kernel unless ``use_kernel`` is False; a CPU tensor runs
+    the plain version.
+    """
+    if image.dim() != 2:
+        raise ValueError(f"doh_score_map expects (H, W), got "
+                         f"{tuple(image.shape)}")
+    if image.is_cuda and use_kernel:
+        x = image.to(torch.float32).contiguous()
+        return _launch_score_map(x, threshold, n_scales, base_sigma, border,
+                                 spacing)
+    return doh_score_map_plain(image, threshold, n_scales, base_sigma,
+                               border, spacing)

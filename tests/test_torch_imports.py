@@ -50,15 +50,20 @@ def test_port_imports_without_jax_or_cuda():
 def test_cpu_tensors_take_the_plain_versions():
     from imagestitch_tpu_torch import _build
     from imagestitch_tpu_torch.ops.kernels import describe, doh, matcher
-    before = (doh.LAUNCHES, describe.LAUNCHES, matcher.LAUNCHES)
+    counts = lambda: (doh.LAUNCHES, doh.SCORE_MAP_LAUNCHES,
+                      describe.LAUNCHES, matcher.LAUNCHES,
+                      matcher.TOP2_LAUNCHES)
+    before = counts()
     img = torch.rand(64, 80) * 255
     doh.doh_select(img, r_cands=2, use_kernel=True)
+    doh.doh_score_map(img, use_kernel=True)
     describe.describe_atlas(img, torch.zeros(3, dtype=torch.int32),
                             torch.zeros(3, dtype=torch.int32))
     d = torch.rand(1, 8, 32)
-    matcher.top2_l2_coords(d, d, torch.ones(1, 8, dtype=torch.bool),
-                           torch.zeros(1, 8), torch.zeros(1, 8))
-    assert (doh.LAUNCHES, describe.LAUNCHES, matcher.LAUNCHES) == before
+    valid = torch.ones(1, 8, dtype=torch.bool)
+    matcher.top2_l2_coords(d, d, valid, torch.zeros(1, 8), torch.zeros(1, 8))
+    matcher.top2_l2(d, d, valid, use_kernel=True)
+    assert counts() == before
     assert _build._lib is None
 
 

@@ -131,16 +131,31 @@ def test_outside_the_slice_raises(change):
         Stitcher(cfg)
 
 
-def test_mesh_and_oriented_fallback_raise(frames):
+def test_mesh_and_oriented_fallback_raise(frames, monkeypatch):
+    """A mesh still raises.  The default configuration (auto_upright) no
+    longer does: upright registers pairs 0-2, pair 3 (unrelated frame) fails
+    with some matches, and the oriented fallback retries it exactly as the
+    JAX package does (the whole configuration's stitch is held against the
+    JAX Stitcher in test_torch_fallback.py)."""
+    from imagestitch_tpu_torch.core import feature_registration as tfr
+    from test_torch_jax_chain import (assert_records_equal,
+                                      count_score_map_frames,
+                                      route_pools_as_on_tpu)
     frames, _ = frames
     cfg = StitchConfig(color_mode=False,
                        features=FeatureConfig(max_keypoints=256))
     with pytest.raises(NotImplementedError, match="item 22"):
         Stitcher(cfg, mesh=object())
-    # upright registers pairs 0-2; pair 3 (unrelated frame) fails with some
-    # matches, which the JAX package would retry with oriented descriptors
     up = Stitcher(cfg.replace(features=dataclasses.replace(
         cfg.features, upright=True))).register(frames)
     assert not up[3].ok and up[3].confidence > 0
-    with pytest.raises(NotImplementedError, match="oriented"):
-        Stitcher(cfg).register(frames)
+    route_pools_as_on_tpu(monkeypatch)
+    calls = count_score_map_frames(monkeypatch, tfr)
+    recs = Stitcher(cfg).register(frames)
+    assert calls == [(H, W)] * 2          # the fallback's two-frame pool
+    # roi_ratio 0.1: six scales x four directions, all tried again
+    assert recs[:3] == up[:3] and recs[3].attempts == up[3].attempts == 24
+    jcfg = JStitchConfig(color_mode=False,
+                         features=JFeatureConfig(max_keypoints=256))
+    assert_records_equal(recs,
+                         jfr.register_sequence_features_incre(frames, jcfg))

@@ -14,8 +14,8 @@ from imagestitch_tpu_torch import FeatureConfig, StitchConfig, Stitcher
     dict(features=FeatureConfig(method="orb")),
     dict(features=FeatureConfig(box_filter=True)),
     dict(features=FeatureConfig(strict_roi_detect=True)),
-    dict(features=FeatureConfig(fused_select=False)),
-    dict(features=FeatureConfig(auto_upright=False)),
+    dict(registration="phase"),
+    dict(features=FeatureConfig(method="sift")),
 ])
 def test_registration_outside_the_slice_raises(change):
     cfg = StitchConfig(color_mode=False).replace(**change)
