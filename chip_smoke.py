@@ -30,14 +30,37 @@ Phases, one line of output each:
                     when it fails with some valid matches.
                 Each path: every registered pair within 1 px of the truth,
                 kernel run == plain run, each of its kernels launched.
+  5. files    — the user's workflow, PNG files on disk to panoramas on
+                disk: the same 11 frames in BGR color (seeds 7 and 99,
+                utils/synthetic.color_sequence) written as PNG into
+                <tmp>/proj/1/, then the port's CLI
+                (``cli.main(["stitch", proj, out, "--device", "cuda",
+                ...])``) with the StitchConfig() defaults:
+                (e) color composed on the device;
+                (f) --stream-output: color composed on the host in float64;
+                (g) --gray --stream-output: the fused pipelined ingest
+                    (pinned side-stream copies), then the host float64
+                    composer (C++ runtime present) or the device composer
+                    with a rect-only readback (runtime absent).
+                Each path: exactly stitching_result_1_1.png (10 frames) and
+                stitching_result_1_2.png (the lone frame) are written and
+                decode to a Stitcher.stitch_files run's panoramas; pairs
+                0-8 within 1 px of the truth; kernel run == plain run; the
+                device panoramas of (e) and (g) == the CPU composer's;
+                K1-K4 launched; then one line of phase times (decode, H2D,
+                register, compose, D2H, imwrite), CUDA events for the
+                device phases.
 Then one JSON line with the per-kernel record and, last, the device line.
 Any failed check raises: the exit code is nonzero and no result line is
 printed.  Float32 throughout: TF32 is off for matmuls and cuDNN.
 """
 import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 
@@ -71,6 +94,19 @@ def check_top2(torch, name, got, ref):
                 float((d1k - d1p).abs().max())), int(differ.sum()))
 
 
+def timed(torch, fn):
+    """``fn()`` once, with its CUDA-event ms and its host-clock ms."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -78,13 +114,17 @@ def main():
                          "this smoke test needs a CUDA GPU")
     import numpy as np
     from imagestitch_tpu_torch import FeatureConfig, StitchConfig, Stitcher
-    from imagestitch_tpu_torch import _build
+    from imagestitch_tpu_torch import _build, cli
+    from imagestitch_tpu_torch.core import compose as compose_mod
     from imagestitch_tpu_torch.core import feature_registration as freg
+    from imagestitch_tpu_torch.core import stream_out
+    from imagestitch_tpu_torch.io import codec, dataset, native_loader
     from imagestitch_tpu_torch.io.dataset import ImageBatch
     from imagestitch_tpu_torch.ops.kernels import describe as kdesc
     from imagestitch_tpu_torch.ops.kernels import doh as kdoh
     from imagestitch_tpu_torch.ops.kernels import matcher as kmatch
     from imagestitch_tpu_torch.utils import synthetic
+    from imagestitch_tpu_torch.utils.records import SequenceReport
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -251,42 +291,15 @@ def main():
                 "top2_l2": (kmatch, "TOP2_LAUNCHES")}
     total = dict.fromkeys(counters, 0)
 
-    def run_path(label, cfg, n, segments, expect):
-        """Kernel run (counts from 0) and plain run of one path; checks
-        segments, offsets against the truth, kernel == plain, launches."""
-        batch = ImageBatch(gray=frames[:n], color=None,
-                           files=[f"frame-{i}" for i in range(n)])
-        Stitcher(cfg, device=dev).stitch_batch(batch)          # warm-up
-        torch.cuda.synchronize()
+    def zero_counts():
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
-        t0 = time.perf_counter()
-        res = Stitcher(cfg, device=dev).stitch_batch(batch)
-        wall = time.perf_counter() - t0
+
+    def read_counts(label, expect):
+        """The counts since zero_counts(), checked against ``expect``
+        (None: at least one launch) and added to the totals."""
         launches = {k: getattr(mod, attr)
                     for k, (mod, attr) in counters.items()}
-        t0 = time.perf_counter()
-        res_plain = Stitcher(cfg.replace(use_kernels=False),
-                             device=dev).stitch_batch(batch)
-        wall_plain = time.perf_counter() - t0
-        report = res[0].report
-        if [r.file_range for r in res] != segments:
-            raise AssertionError(f"{label}: segments "
-                                 f"{[r.file_range for r in res]}")
-        for k, (off, t) in enumerate(zip(res[0].offsets, truth)):
-            if abs(off[0] - t[0]) >= 1 or abs(off[1] - t[1]) >= 1:
-                raise AssertionError(f"{label}: pair {k}: offset {off}, "
-                                     f"truth {t}")
-        if [r.offsets for r in res] != [r.offsets for r in res_plain] or \
-                [r.report.confidences for r in res] != \
-                [r.report.confidences for r in res_plain] or \
-                not all(np.array_equal(a.image, b.image)
-                        for a, b in zip(res, res_plain)):
-            raise AssertionError(f"{label}: kernel run differs from the "
-                                 f"plain run")
-        pano = res[0].image
-        if pano.dtype != np.uint8 or pano.ndim != 2 or (pano > 0).mean() < 0.9:
-            raise AssertionError(f"{label}: panorama {pano.dtype} {pano.shape}")
         for name, want in expect.items():
             if (launches[name] == 0) if want is None else \
                     (launches[name] != want):
@@ -295,6 +308,49 @@ def main():
                                      f"{'> 0' if want is None else want}")
         for k, v in launches.items():
             total[k] += v
+        return launches
+
+    def records_of(report):
+        return (report.num_ok, report.offsets, report.confidences,
+                report.directions, report.scales, report.attempts)
+
+    def check_run(label, res, res_plain, segments):
+        """Segments, offsets against the truth, kernel run == plain run."""
+        if [r.file_range for r in res] != segments:
+            raise AssertionError(f"{label}: segments "
+                                 f"{[r.file_range for r in res]}")
+        for k, (off, t) in enumerate(zip(res[0].offsets, truth)):
+            if abs(off[0] - t[0]) >= 1 or abs(off[1] - t[1]) >= 1:
+                raise AssertionError(f"{label}: pair {k}: offset {off}, "
+                                     f"truth {t}")
+        if [r.offsets for r in res] != [r.offsets for r in res_plain] or \
+                records_of(res[0].report) != records_of(res_plain[0].report) \
+                or not all(np.array_equal(a.image, b.image)
+                           for a, b in zip(res, res_plain)):
+            raise AssertionError(f"{label}: kernel run differs from the "
+                                 f"plain run")
+        return res[0].report
+
+    def run_path(label, cfg, n, segments, expect):
+        """Kernel run (counts from 0) and plain run of one path; checks
+        segments, offsets against the truth, kernel == plain, launches."""
+        batch = ImageBatch(gray=frames[:n], color=None,
+                           files=[f"frame-{i}" for i in range(n)])
+        Stitcher(cfg, device=dev).stitch_batch(batch)          # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        res = Stitcher(cfg, device=dev).stitch_batch(batch)
+        wall = time.perf_counter() - t0
+        launches = read_counts(label, expect)
+        t0 = time.perf_counter()
+        res_plain = Stitcher(cfg.replace(use_kernels=False),
+                             device=dev).stitch_batch(batch)
+        wall_plain = time.perf_counter() - t0
+        report = check_run(label, res, res_plain, segments)
+        pano = res[0].image
+        if pano.dtype != np.uint8 or pano.ndim != 2 or (pano > 0).mean() < 0.9:
+            raise AssertionError(f"{label}: panorama {pano.dtype} {pano.shape}")
         print(f"slice {label}: {n} x {h}x{w} frames, {report.num_ok}/"
               f"{report.num_pairs} pairs, segments "
               f"{[r.file_range for r in res]}, offsets {report.offsets} "
@@ -323,6 +379,185 @@ def main():
         registration="feature", features=FeatureConfig()), 11,
         [(0, 10), (10, 11)],
         {"top2_l2": None, "doh_select": 44, "describe_atlas": 11})
+
+    # ---- 5. files to files through the CLI, StitchConfig() defaults
+    t0 = time.perf_counter()
+    colors = np.concatenate([
+        synthetic.color_sequence(7, (h, w), positions)[0],
+        synthetic.color_sequence(99, (h, w), [(0.5, 0.5)])[0]])
+    t_data = time.perf_counter() - t0
+    outputs = ["stitching_result_1_1.png", "stitching_result_1_2.png"]
+    expect = {"doh_select": 44, "describe_atlas": 11, "top2_l2_coords": None,
+              "doh_score_map": None, "top2_l2": 0}
+
+    def phase_times(label, cfg, res):
+        """The path's phases once more, one at a time: decode, H2D,
+        register, compose, D2H, imwrite.  Checks that the records are
+        register_sequence_features_incre's on the decoded frames and that
+        the panorama is the path's."""
+        color = cfg.color_mode
+        batch, _, dec_ms = timed(torch, lambda: dataset.load_batch(files,
+                                                                   color))
+        if color and not np.array_equal(batch.color, colors):
+            raise AssertionError(f"{label}: decoded frames differ from the "
+                                 f"written ones")
+        pinned = torch.from_numpy(batch.gray).pin_memory()
+        gray_dev, h2d_ms, _ = timed(torch, lambda: pinned.to(
+            dev, non_blocking=True))
+        recs, reg_ms, _ = timed(torch, lambda: (
+            freg.register_sequence_features_incre(gray_dev, cfg, device=dev)))
+        if records_of(SequenceReport.from_records(recs)) != \
+                records_of(res[0].report):
+            raise AssertionError(f"{label}: records differ from "
+                                 f"register_sequence_features_incre's")
+        offs = res[0].offsets
+        parts = [f"decode {dec_ms:.1f} ms (host, {len(files)} files)",
+                 f"H2D gray {h2d_ms:.3f} ms (events, pinned, "
+                 f"{pinned.numel()} B)", f"register {reg_ms:.1f} ms (events)"]
+        if color and not cfg.stream_output:
+            color_dev, ms, _ = timed(torch, lambda: torch.as_tensor(
+                batch.color[:10]).to(dev))
+            parts.append(f"H2D color {ms:.3f} ms (events, pageable, "
+                         f"{color_dev.numel()} B)")
+            pano_dev, ms, _ = timed(torch, lambda: compose_mod.compose(
+                color_dev, offs, cfg, return_device=True))
+            parts.append(f"compose {ms:.1f} ms (events, device, int16 "
+                         f"canvas {pano_dev.numel() * 2} B)")
+            pano, ms, _ = timed(torch, lambda: pano_dev.cpu().numpy())
+            parts.append(f"D2H {ms:.3f} ms (events, pageable, "
+                         f"{pano.nbytes} B)")
+        elif color or native_loader.get_lib() is not None:
+            frames_host = batch.color if color else batch.gray
+            pano, _, ms = timed(torch, lambda: stream_out.compose_host(
+                frames_host[:10], offs, cfg))
+            parts.append(f"compose {ms:.1f} ms (host float64, "
+                         f"{native_loader.route()} route, int16 canvas "
+                         f"{pano.size * 2} B); D2H none")
+        else:
+            _, steps, _ = compose_mod.plan_compose(offs, (h, w), cfg)
+            rect_px = sum(p[2] * p[3] for p in
+                          stream_out.visible_rect_pieces(steps, (h, w)))
+            pano, ms, _ = timed(torch, lambda: stream_out.compose_streamed(
+                batch.gray[:10], offs, cfg, frames_dev=gray_dev[:10]))
+            parts.append(f"compose_streamed {ms:.1f} ms (events: device "
+                         f"compose, D2H of {rect_px} B of visible fusion "
+                         f"rects, host paste replay)")
+        if not np.array_equal(pano, res[0].image):
+            raise AssertionError(f"{label}: the phase-by-phase panorama "
+                                 f"differs")
+        _, _, ms = timed(torch, lambda: codec.imwrite(
+            os.path.join(work, "phase.png"), pano))
+        parts.append(f"imwrite {ms:.1f} ms (host, PNG, {pano.nbytes} B)")
+        return "; ".join(parts)
+
+    def run_files(label, flags):
+        """The CLI on the project (counts from 0), then a warm
+        Stitcher.stitch_files run and a plain one; returns the warm run's
+        results and its configuration."""
+        out = os.path.join(work, label[1])
+        argv = ["stitch", proj, out, "--device", "cuda", "--file-extension",
+                "png", "--output-extension", "png"] + flags
+        cfg = cli.config_from_args(cli.build_parser().parse_args(argv)
+                                   ).replace(print_log=False)
+        zero_counts()
+        t0 = time.perf_counter()
+        if cli.main(argv) != 0:
+            raise AssertionError(f"{label}: the CLI returned nonzero")
+        wall_cli = time.perf_counter() - t0
+        launches = read_counts(label, expect)
+        if sorted(os.listdir(out)) != outputs:
+            raise AssertionError(f"{label}: wrote {sorted(os.listdir(out))}")
+        t0 = time.perf_counter()
+        res = Stitcher(cfg, device=dev).stitch_files(files)
+        wall = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res_plain = Stitcher(cfg.replace(use_kernels=False),
+                             device=dev).stitch_files(files)
+        wall_plain = time.perf_counter() - t0
+        report = check_run(label, res, res_plain, [(0, 10), (10, 11)])
+        for name, r in zip(outputs, res):
+            if not np.array_equal(codec.imread(os.path.join(out, name),
+                                               cfg.color_mode), r.image):
+                raise AssertionError(f"{label}: {name} differs from "
+                                     f"stitch_files' panorama")
+        pano = res[0].image
+        shape = compose_mod.compute_placement(res[0].offsets, (h, w)
+                                              ).canvas_shape
+        shape += (3,) if cfg.color_mode else ()
+        covered = pano.reshape(shape[0], shape[1], -1).max(-1) > 0
+        if pano.dtype != np.uint8 or pano.shape != shape or \
+                covered.mean() < 0.9:
+            raise AssertionError(f"{label}: panorama {pano.dtype} "
+                                 f"{pano.shape}, want {shape}")
+        if cfg.color_mode and not all(
+                (pano[..., a] != pano[..., b]).mean() > 0.5
+                for a, b in ((0, 1), (1, 2), (0, 2))):
+            raise AssertionError(f"{label}: the color channels agree")
+        phases = phase_times(label, cfg, res)
+        print(f"slice {label}: {len(files)} PNG files -> {outputs}, "
+              f"{report.num_ok}/{report.num_pairs} pairs, offsets "
+              f"{report.offsets} (confidence {report.confidences}), "
+              f"panorama {pano.shape}; CLI wall {wall_cli:.3f} s; warm wall "
+              f"{wall:.3f} s with kernels, {wall_plain:.3f} s plain; phases: "
+              f"{phases}; launches {launches}")
+        return res, cfg
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        proj = os.path.join(work, "proj")
+        t0 = time.perf_counter()
+        for i, im in enumerate(colors):
+            codec.imwrite(os.path.join(proj, "1", f"tile_{i:02d}.png"), im)
+        files = dataset.list_project_images(proj, 1, "png")
+        decoder = (f"cv2 {codec.cv2.__version__}" if codec._HAS_CV2
+                   else "PIL")
+        print(f"files: {len(files)} BGR frames {colors.shape[1:]} made in "
+              f"{t_data:.1f} s, written as PNG in "
+              f"{time.perf_counter() - t0:.1f} s; codec {decoder}; C++ host "
+              f"runtime: {native_loader.route()} route")
+        res_e, cfg_e = run_files("(e) CLI color", [])
+        # the CPU composer is the JAX composer's arithmetic (CPU tests)
+        if not np.array_equal(compose_mod.compose(
+                colors[:10], res_e[0].offsets, cfg_e), res_e[0].image):
+            raise AssertionError("(e): the device panorama differs from the "
+                                 "CPU composer's")
+        print("(e) device color panorama == the CPU composer's")
+        res_f, _ = run_files("(f) CLI color --stream-output",
+                             ["--stream-output"])
+        if records_of(res_f[0].report) != records_of(res_e[0].report):
+            raise AssertionError("(f): records differ from (e)'s")
+        diff = np.abs(res_f[0].image.astype(np.int16)
+                      - res_e[0].image.astype(np.int16))
+        if diff.max() > 1 or (diff != 0).mean() >= 1e-2:
+            raise AssertionError(f"(f): host float64 against the device "
+                                 f"composer: max diff {diff.max()}, "
+                                 f"{(diff != 0).mean():.3g} differ")
+        print(f"(f) against (e): {int((diff != 0).sum())} of {diff.size} "
+              f"values differ, by at most {int(diff.max())}")
+        res_g, cfg_g = run_files("(g) CLI --gray --stream-output",
+                                 ["--gray", "--stream-output"])
+        gray = dataset.load_batch(files[:10], False).gray
+        ref = compose_mod.compose(torch.as_tensor(gray, device=dev),
+                                  res_g[0].offsets, cfg_g)
+        if not np.array_equal(ref, compose_mod.compose(
+                gray, res_g[0].offsets, cfg_g)):
+            raise AssertionError("(g): the device gray panorama differs from "
+                                 "the CPU composer's")
+        diff = np.abs(res_g[0].image.astype(np.int16) - ref.astype(np.int16))
+        if native_loader.get_lib() is not None:
+            route = "compose_host"
+            ok = diff.max() <= 1 and (diff != 0).mean() < 1e-2
+        else:
+            route = "compose_streamed"
+            ok = diff.max() == 0
+        if not ok:
+            raise AssertionError(f"(g): {route} against the device composer: "
+                                 f"max diff {diff.max()}")
+        print(f"(g) {route} against the device composer (== the CPU "
+              f"composer): {int((diff != 0).sum())} of {diff.size} pixels "
+              f"differ")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     for r in records:
         r["launches"] = total[r["name"]]
         if r["launches"] <= 0:

@@ -2,14 +2,21 @@
 
 Feature registration (pooled ``feature_incre`` with its oriented fallback,
 and whole-image ``feature``; upright or oriented SURF over the fused or the
-score-map pool; host replay of the reference's scale x direction search)
-and fade composition on gray frames, in PyTorch, with hand-written CUDA
-kernels for Hopper (``csrc/``) where the JAX package runs Pallas kernels.
-Imports torch only — never jax or the JAX package.
+score-map pool; host replay of the reference's scale x direction search),
+fade composition in color (the default) or gray on the device or, with
+``stream_output``, on the host in float64, pipelined file ingest,
+registration checkpoints, ``Stitcher.stitch_project_set`` and the CLI
+(``python -m imagestitch_tpu_torch.cli stitch ...``), in PyTorch, with
+hand-written CUDA kernels for Hopper (``csrc/``) where the JAX package runs
+Pallas kernels, and the shared C++ host runtime (``native/``) where it runs
+that.  Imports torch only — never jax or the JAX package.
 """
 from .config import EnhanceConfig, FeatureConfig, StitchConfig
 from .core.compose import compose
 from .core.stitcher import Stitcher, StitchResult
+from .core.stream_out import compose_color_host, compose_host, compose_streamed
+from .io.dataset import ImageBatch, load_batch
 
 __all__ = ["StitchConfig", "FeatureConfig", "EnhanceConfig", "Stitcher",
-           "StitchResult", "compose"]
+           "StitchResult", "ImageBatch", "load_batch", "compose",
+           "compose_host", "compose_color_host", "compose_streamed"]

@@ -1,12 +1,13 @@
 """Canvas placement and composition.
 
-Port of ``imagestitch_tpu/core/compose.py`` for the fade slice: placement is
-integer bookkeeping on the host (exact reference semantics, Stitcher.py:
-387-431, including the running-max occupancy quirk), and the canvas is ONE
-int16 device tensor at its final size with the reference's ``-1``
-sentinel.  Each step pastes its frame in place and fuses the exact overlap
-rect against the canvas before and after the paste (Stitcher.py:440-486);
-no shape buckets are needed because PyTorch runs eagerly.
+Port of ``imagestitch_tpu/core/compose.py`` for fade fusion, gray and
+color: placement is integer bookkeeping on the host (exact reference
+semantics, Stitcher.py:387-431, including the running-max occupancy quirk),
+and the canvas is ONE int16 device tensor at its final size, (rows, cols)
+or (rows, cols, 3), with the reference's ``-1`` sentinel.  Each step
+pastes its frame in place and fuses the exact overlap rect against the
+canvas before and after the paste (Stitcher.py:440-486); no shape buckets
+are needed because PyTorch runs eagerly.
 """
 from __future__ import annotations
 
@@ -119,31 +120,31 @@ def plan_compose(offsets: Sequence[Tuple[int, int]],
     return placement, steps, pairwise
 
 
-def compose(images, offsets: Sequence[Tuple[int, int]], cfg: StitchConfig
-            ) -> np.ndarray:
-    """Compose a registered gray sequence into one uint8 panorama (host).
+def compose(images, offsets: Sequence[Tuple[int, int]], cfg: StitchConfig,
+            return_device: bool = False):
+    """Compose a registered sequence into one uint8 panorama.
 
-    ``images``: (N, H, W) uint8, numpy or a tensor on the device that
-    composes (numpy composes on the CPU).  ``offsets``: N-1 pairwise (drow,
-    dcol) ints.  Parity with Stitcher.py:440-486: image i fuses only against
-    the occupancy rect of image i-1, the fuse rect sees the canvas before
-    and after pasting image i, and fusion uses the pairwise offset.
+    ``images``: (N, H, W) gray or (N, H, W, 3) BGR uint8, numpy or a tensor
+    on the device that composes (numpy composes on the CPU).  ``offsets``:
+    N-1 pairwise (drow, dcol) ints.  Returns the host numpy panorama, or
+    with ``return_device`` the uint8 tensor where it was composed.  Parity
+    with Stitcher.py:440-486: image i fuses only against the occupancy rect
+    of image i-1, the fuse rect sees the canvas before and after pasting
+    image i, and fusion uses the pairwise offset.
     """
     if cfg.fuse_method != "fadeInAndFadeOut":
         raise NotImplementedError(
             f"fuse_method={cfg.fuse_method!r} is not ported yet (ROADMAP "
             f"Queue 1 item 18)")
     images = torch.as_tensor(images)
-    if images.dim() != 3:
-        raise NotImplementedError("color composition is not ported yet "
-                                  "(ROADMAP Queue 1 item 9)")
-    n, h, w = images.shape
+    color = images.dim() == 4
+    n, h, w = images.shape[:3]
     if len(offsets) != n - 1:
         raise ValueError(f"{len(offsets)} offsets for {n} images")
     placement, steps, pairwise = plan_compose(offsets, (h, w), cfg)
     rows, cols = placement.canvas_shape
-    canvas = torch.full((rows, cols), -1, dtype=torch.int16,
-                        device=images.device)
+    canvas = torch.full((rows, cols) + tuple(images.shape[3:]), -1,
+                        dtype=torch.int16, device=images.device)
     for kind, i, (r, c), rect, size in steps:
         img = images[i].to(torch.int16)
         if kind == "paste":
@@ -155,6 +156,6 @@ def compose(images, offsets: Sequence[Tuple[int, int]], cfg: StitchConfig
         canvas[r:r + h, c:c + w] = img
         roi_b = view.to(torch.int32)               # after the paste
         drow, dcol = pairwise[i]
-        view.copy_(blend.fuse_fade(roi_a, roi_b, drow, dcol))
-    canvas = torch.where(canvas == -1, torch.zeros_like(canvas), canvas)
-    return canvas.to(torch.uint8).cpu().numpy()
+        view.copy_(blend.fuse_fade(roi_a, roi_b, drow, dcol, color))
+    pano = canvas.clamp_(min=0).to(torch.uint8)   # -1 sentinel -> 0
+    return pano if return_device else pano.cpu().numpy()

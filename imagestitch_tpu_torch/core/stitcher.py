@@ -1,15 +1,21 @@
-"""Sequence stitching orchestration.
+"""Sequence / dataset stitching orchestration.
 
-Port of the single-device path of ``imagestitch_tpu/core/stitcher.py``:
-``register`` (pooled incremental or whole-image feature search),
-``stitch_batch`` (flowStitchWithMutiple semantics, reference
-Stitcher.py:96-127: register every pair up front, split into segments at
-failed pairs, compose each segment) and ``stitch_files`` with serial
-decode.
+Port of the single-device path of ``imagestitch_tpu/core/stitcher.py``
+(:54-334):
+  * ``register``           — pooled incremental or whole-image feature search;
+  * ``stitch_batch``       — flowStitchWithMutiple (reference
+    Stitcher.py:96-127): register every pair up front (or load the records
+    from a checkpoint), split into segments at failed pairs, compose each
+    segment in color or gray;
+  * ``stitch_files``       — pipelined ingest (io/prefetch.py), fused with
+    the pool on the gray ``feature_incre`` path;
+  * ``stitch_project_set`` — imageSetStitchWithMutiple (Stitcher.py:153-182).
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
 import time
 from typing import List, Optional, Sequence, Tuple
 
@@ -17,7 +23,7 @@ import numpy as np
 import torch
 
 from ..config import StitchConfig
-from ..io import dataset
+from ..io import codec, dataset
 from ..utils.records import SequenceReport, print_and_write
 from . import compose as compose_mod
 from . import registration
@@ -37,10 +43,6 @@ def check_supported(cfg: StitchConfig) -> None:
     for a configuration outside the ported slice."""
     from .feature_registration import check_supported as check_registration
     todo = []
-    if cfg.color_mode:
-        todo.append("color_mode (ROADMAP Queue 1 item 9)")
-    if cfg.stream_output:
-        todo.append("stream_output (ROADMAP Queue 1 items 10 and 19)")
     if cfg.use_global_solver:
         todo.append("use_global_solver (ROADMAP Queue 1 item 20)")
     if cfg.fuse_method != "fadeInAndFadeOut":
@@ -51,23 +53,37 @@ def check_supported(cfg: StitchConfig) -> None:
     check_registration(cfg)
 
 
+def _host(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 class Stitcher:
     """The engine facade for one configuration on one device.
 
-    ``device``: where registration and composition run (a ``torch.device``
-    or its name); None takes the device of the input tensors (the CPU for
-    numpy input).  The search direction persists across calls (reference
-    parity: Stitcher.direction is a class attribute, Stitcher.py:361).
+    ``checkpoint_dir``: registration records are saved there per file list
+    and loaded instead of registering again.  ``device``: where
+    registration and composition run (a ``torch.device`` or its name);
+    None takes the device of the input tensors (the CPU for numpy input).
+    The search direction persists across calls (reference parity:
+    Stitcher.direction is a class attribute, Stitcher.py:361).
     """
 
-    def __init__(self, cfg: StitchConfig, device=None, mesh=None):
+    def __init__(self, cfg: StitchConfig, checkpoint_dir: Optional[str] = None,
+                 mesh=None, device=None):
         if mesh is not None:
             raise NotImplementedError("a device mesh is not ported yet "
                                       "(ROADMAP Queue 1 item 22)")
         check_supported(cfg)
         self.cfg = cfg
+        self.checkpoint_dir = checkpoint_dir
         self.device = None if device is None else torch.device(device)
         self._direction = cfg.direction
+
+    def _to_device(self, x) -> torch.Tensor:
+        x = torch.as_tensor(x)
+        return x if self.device is None else x.to(self.device)
+
+    # -- registration ------------------------------------------------------
 
     def register(self, gray) -> List[registration.PairRegistration]:
         """Register all adjacent pairs of an (N, H, W) grayscale batch."""
@@ -80,7 +96,12 @@ class Stitcher:
                 gray, cfg, device=self.device)
         else:
             raise ValueError(cfg.registration)
-        # persist the last successful direction across sequences
+        self._after_register(recs)
+        return recs
+
+    def _after_register(self, recs) -> None:
+        """Persist the last successful direction across sequences and log
+        every pair (reference Stitcher.py:303, :366 via printAndWrite)."""
         for r in reversed(recs):
             if r.ok and r.direction:
                 self._direction = r.direction
@@ -97,18 +118,34 @@ class Stitcher:
                     print_and_write(
                         self.cfg, f"  Pair {k} failed to register after "
                                   f"{r.attempts} attempts")
-        return recs
 
-    def stitch_batch(self, batch: dataset.ImageBatch) -> List[StitchResult]:
+    # -- sequence stitching ------------------------------------------------
+
+    def stitch_batch(self, batch: dataset.ImageBatch,
+                     recs: Optional[List[registration.PairRegistration]] = None
+                     ) -> List[StitchResult]:
         """flowStitchWithMutiple semantics on a decoded batch: one
         StitchResult per stitchable segment; a lone image is returned as-is
-        (reference Stitcher.py:119-125)."""
+        (reference Stitcher.py:119-125).  ``recs``: precomputed records (the
+        pipelined ingest registers while it decodes)."""
         t0 = time.time()
-        gray = torch.as_tensor(batch.gray)
-        if self.device is not None:
-            gray = gray.to(self.device)
-        recs = self.register(gray)
+        ckpt_path = None
+        if self.checkpoint_dir is not None:
+            from . import checkpoint
+            key = hashlib.sha1("\n".join(batch.files).encode()).hexdigest()[:16]
+            ckpt_path = os.path.join(self.checkpoint_dir, f"reg_{key}.json")
+            if recs is None:
+                recs = checkpoint.load_registration(ckpt_path, batch.files)
+        # gray crosses to the device once, where it registers and, in gray
+        # mode, composes; color mode composes batch.color
+        gray = batch.gray if self.cfg.color_mode else self._to_device(
+            batch.gray)
+        if recs is None:
+            recs = self.register(self._to_device(gray))
+            if ckpt_path is not None:
+                checkpoint.save_registration(ckpt_path, batch.files, recs)
         t_reg = time.time() - t0
+        compose_src = batch.color if self.cfg.color_mode else gray
         n = batch.num_images
         results: List[StitchResult] = []
         t0 = time.time()
@@ -120,10 +157,10 @@ class Stitcher:
                 seg_offsets.append(recs[end].offset)
                 end += 1
             if end == start:
-                img = gray[start].cpu().numpy()
+                img = _host(compose_src[start])
             else:
-                img = compose_mod.compose(gray[start:end + 1], seg_offsets,
-                                          self.cfg)
+                img = self._compose_segment(batch, compose_src[start:end + 1],
+                                            seg_offsets, start, end)
             results.append(StitchResult(image=img,
                                         file_range=(start, end + 1),
                                         offsets=seg_offsets))
@@ -135,6 +172,84 @@ class Stitcher:
             r.report = report
         return results
 
+    def _compose_segment(self, batch: dataset.ImageBatch, seg_images,
+                         seg_offsets, start: int, end: int) -> np.ndarray:
+        """Compose one segment (JAX stitcher.py:206-240): on the device with
+        a full readback by default; with ``stream_output``, color on the
+        host in float64 and gray on the host in float64 (runtime present)
+        or on the device with a rect-only readback (runtime absent)."""
+        cfg = self.cfg
+        if cfg.stream_output:
+            from ..io import native_loader
+            from . import stream_out
+            if cfg.color_mode:
+                if isinstance(batch.color, np.ndarray):
+                    return stream_out.compose_color_host(
+                        seg_images, seg_offsets, cfg)
+            else:
+                host = batch.gray_host if batch.gray_host is not None else (
+                    batch.gray if isinstance(batch.gray, np.ndarray) else None)
+                if host is not None and native_loader.get_lib() is not None:
+                    return stream_out.compose_host(host[start:end + 1],
+                                                   seg_offsets, cfg)
+                if host is not None:
+                    return stream_out.compose_streamed(
+                        host[start:end + 1], seg_offsets, cfg,
+                        frames_dev=self._to_device(seg_images))
+        return compose_mod.compose(self._to_device(seg_images), seg_offsets,
+                                   cfg)
+
     def stitch_files(self, files: Sequence[str]) -> List[StitchResult]:
-        """Decode ``files`` serially, then ``stitch_batch``."""
-        return self.stitch_batch(dataset.load_batch(files, self.cfg.color_mode))
+        """Stitch a file sequence with pipelined ingest: decode of chunk
+        k+1 overlaps the copy to the device and the device work of chunk k.
+        On the gray ``feature_incre`` path without checkpoints the decode
+        overlaps the pool itself (io/prefetch.register_sequence_pipelined)."""
+        from ..io import prefetch
+        cfg = self.cfg
+        device = self.device or torch.device("cpu")
+        if (cfg.registration == "feature_incre"
+                and self.checkpoint_dir is None and not cfg.color_mode):
+            recs, gray_dev, gray_host = prefetch.register_sequence_pipelined(
+                files, cfg.replace(direction=self._direction), device,
+                keep_host=cfg.stream_output)
+            self._after_register(recs)
+            batch = dataset.ImageBatch(gray=gray_dev, color=None,
+                                       files=list(files), gray_host=gray_host)
+            return self.stitch_batch(batch, recs=recs)
+        return self.stitch_batch(prefetch.load_batch_pipelined(
+            files, cfg.color_mode, device))
+
+    # -- dataset orchestration (L4) ----------------------------------------
+
+    def stitch_project_set(self, project_address: str, output_address: str,
+                           file_num: int, start_num: int = 1,
+                           file_extension: str = "jpg",
+                           output_extension: str = "jpg") -> List[str]:
+        """imageSetStitchWithMutiple semantics (Stitcher.py:153-182) with
+        portable paths: ``stitching_result_<i>.<ext>`` for a sub-project
+        that stitches whole, else ``stitching_result_<i>_<j>.<ext>`` per
+        segment.  Returns the written files."""
+        written: List[str] = []
+        for i in range(start_num, file_num + 1):
+            t0 = time.time()
+            files = dataset.list_project_images(project_address, i,
+                                                file_extension)
+            if not files:
+                print(f"warning: no *.{file_extension} files under "
+                      f"{os.path.join(project_address, str(i))}; skipping")
+                continue
+            results = self.stitch_files(files)
+            os.makedirs(output_address, exist_ok=True)
+            if len(results) == 1:
+                names = [f"stitching_result_{i}.{output_extension}"]
+            else:
+                names = [f"stitching_result_{i}_{j + 1}.{output_extension}"
+                         for j in range(len(results))]
+            for name, res in zip(names, results):
+                out = os.path.join(output_address, name)
+                codec.imwrite(out, res.image)
+                written.append(out)
+            print_and_write(self.cfg,
+                            f"Time consuming for {project_address}/{i}: "
+                            f"{time.time() - t0:.3f}s")
+        return written

@@ -3,7 +3,9 @@
 Port of ``imagestitch_tpu/io/codec.py``: JPEG/PNG through OpenCV when it is
 installed, PIL otherwise; decode is optional, and a machine with neither
 raises at the first decode, not at import.  Bytes are read first, as the
-reference does for non-ASCII paths (Stitcher.py:68-69).
+reference does for non-ASCII paths (Stitcher.py:68-69).  Color is BGR on
+both routes (PIL's RGB is reversed on read and on write).  The gray of a
+color frame is io/dataset.bgr_to_gray, cv2's fixed-point rule.
 """
 from __future__ import annotations
 
@@ -63,13 +65,3 @@ def imwrite(path: str, image: np.ndarray) -> None:
                         ).save(path)
         return
     raise RuntimeError("no image encoder available (need cv2 or PIL)")
-
-
-def to_gray(image: np.ndarray) -> np.ndarray:
-    """BGR uint8 -> grayscale uint8 with OpenCV's rounding convention."""
-    if image.ndim == 2:
-        return image
-    b = image[..., 0].astype(np.float32)
-    g = image[..., 1].astype(np.float32)
-    r = image[..., 2].astype(np.float32)
-    return np.clip(np.round(0.114 * b + 0.587 * g + 0.299 * r), 0, 255).astype(np.uint8)

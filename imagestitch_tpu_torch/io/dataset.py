@@ -1,18 +1,20 @@
 """Dataset discovery and batched loading.
 
-Port of ``imagestitch_tpu/io/dataset.py`` without the native thread-pool
-loader: frames are decoded serially on the host (io/codec.py) into one
-dense (N, H, W) uint8 batch.
+Port of ``imagestitch_tpu/io/dataset.py``: files decode into one dense
+(N, H, W[, 3]) uint8 batch, JPEGs through the runtime's thread-pool
+libjpeg decoder (io/native_loader.py) and anything else through
+io/codec.py on a thread pool.  Registration always runs on gray; in color mode the gray
+frames are made from the color ones with cv2's fixed-point rule
+(``bgr_to_gray``).
 """
 from __future__ import annotations
 
 import os
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
 import numpy as np
-
-from . import codec
 
 
 def list_project_images(project_address: str, sub_project: int,
@@ -32,12 +34,15 @@ class ImageBatch:
     """A decoded dataset resident as one dense batch.
 
     gray:  (N, H, W) uint8 (numpy or tensor) — registration runs on gray.
-    color: (N, H, W, 3) uint8 BGR, or None in gray mode.
+    color: (N, H, W, 3) uint8 BGR numpy, or None in gray mode.
     files: source paths, capture order.
+    gray_host: host copy of ``gray`` when ``gray`` is a device tensor and
+        the streamed-output composers need host frames; else None.
     """
     gray: np.ndarray
     color: Optional[np.ndarray]
     files: List[str]
+    gray_host: Optional[np.ndarray] = None
 
     @property
     def num_images(self) -> int:
@@ -48,13 +53,35 @@ class ImageBatch:
         return tuple(self.gray.shape[1:3])
 
 
-def load_batch(files: Sequence[str], color_mode: bool) -> ImageBatch:
-    """Decode ``files`` serially into one contiguous batch; mixed shapes
-    are rejected."""
+def bgr_to_gray(bgr: np.ndarray) -> np.ndarray:
+    """(H, W, 3) BGR uint8 -> (H, W) gray by cv2's 14-bit fixed-point rule,
+    ``(1868 b + 9617 g + 4899 r + 8192) >> 14`` (native/stitch_runtime.cpp:
+    190-199): in the runtime when it loads, else the same integer expression
+    in numpy.  Both give the same bits."""
+    from .native_loader import bgr_to_gray_native
+    g = bgr_to_gray_native(bgr)
+    if g is not None:
+        return g
+    x = bgr.astype(np.uint32)
+    return ((1868 * x[..., 0] + 9617 * x[..., 1] + 4899 * x[..., 2] + 8192)
+            >> 14).astype(np.uint8)
+
+
+def load_batch(files: Sequence[str], color_mode: bool,
+               loader=None) -> ImageBatch:
+    """Decode ``files`` into one contiguous batch; mixed shapes are
+    rejected.  ``loader``: any object with ``read_all(files, color)``; by
+    default the runtime's thread-pool decoder (io/native_loader.py)."""
     if not files:
         raise ValueError("empty file list")
-    decoded = [codec.imread(f, color_mode) for f in files]
-    grays = [codec.to_gray(im) for im in decoded] if color_mode else decoded
+    if loader is None:
+        from .native_loader import NativeLoader
+        loader = NativeLoader()
+    decoded = loader.read_all(files, color_mode)
+    grays = decoded
+    if color_mode:
+        with ThreadPoolExecutor(min(len(files), os.cpu_count() or 1)) as pool:
+            grays = list(pool.map(bgr_to_gray, decoded))
     shape0 = grays[0].shape
     for f, g in zip(files, grays):
         if g.shape != shape0:

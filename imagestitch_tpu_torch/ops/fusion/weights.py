@@ -4,12 +4,18 @@ Port of the static-shape weights of ``imagestitch_tpu/ops/fusion/weights.py``
 (:20-111, :280-349): separable ramps for a full overlap and the corner
 -quadrant weights of ImageFusion.py:43-190.  PyTorch runs eagerly on the
 exact fusion rect, so the padded ``_dyn`` variants of the JAX package (which
-exist for jit shape buckets) have no counterpart.  The scalar decisions of
+exist for jit shape buckets, and which its composer runs) have no
+counterpart; they compute the same weights on the true rect, and the port's
+panoramas are held bit-equal to the JAX composer's.  The scalar decisions of
 the reference's pixel scans (quadrant, boundary row and column) are taken on
-the host from per-column reductions; the ramps are float32 on the device.
+the host from per-column reductions.  The 1-D ramps are computed in float32
+on the host and then copied to the region's device: PyTorch's CUDA division
+by a Python scalar multiplies by the scalar's reciprocal, which can be one
+ulp off the IEEE quotient that the CPU and the JAX composer compute.
 
-Conventions: gray regions carry the reference's ``-1`` background sentinel
-(int32); ``valid`` means != -1.
+Conventions: regions carry the reference's ``-1`` background sentinel
+(int32), gray (H, W) or color (H, W, 3); ``valid`` means != -1 (gray) or
+channel sum != -3 (color).
 """
 from __future__ import annotations
 
@@ -19,9 +25,10 @@ import numpy as np
 import torch
 
 
-def _valid_mask(image: torch.Tensor) -> torch.Tensor:
-    """(H, W) bool validity of a gray region — ImageFusion.py:72 sentinel
-    test."""
+def _valid_mask(image: torch.Tensor, color: bool) -> torch.Tensor:
+    """(H, W) bool validity — ImageFusion.py:72/80 sentinel test."""
+    if color:
+        return image.sum(dim=-1) != -3
     return image != -1
 
 
@@ -32,17 +39,19 @@ def plain_fade_weights(shape_hw: Tuple[int, int], drow: int, dcol: int,
     direction follows the sign of the pairwise offset component."""
     row, col = shape_hw
     if col <= row:  # "horizontal" stitch: ramp across columns
-        j = torch.arange(col, dtype=torch.float32, device=device)
+        j = torch.arange(col, dtype=torch.float32)
         if dcol >= 0:
             wa, wb = (col - 1 - j) / col, j / col
         else:
             wa, wb = (j + 1) / col, (col - j) / col
+        wa, wb = wa.to(device), wb.to(device)
         return wa[None, :].expand(row, col), wb[None, :].expand(row, col)
-    i = torch.arange(row, dtype=torch.float32, device=device)
+    i = torch.arange(row, dtype=torch.float32)
     if drow <= 0:
         wa, wb = i / row, (row - 1 - i) / row
     else:
         wa, wb = (row - i) / row, (i + 1) / row
+    wa, wb = wa.to(device), wb.to(device)
     return wa[:, None].expand(row, col), wb[:, None].expand(row, col)
 
 
@@ -73,10 +82,10 @@ def _row_ramp_up(n: int, row_index: int, device) -> torch.Tensor:
     row_index == 0 -> all ones."""
     if row_index == 0:
         return torch.ones(n, dtype=torch.float32, device=device)
-    r = torch.arange(n, dtype=torch.float32, device=device)
+    r = torch.arange(n, dtype=torch.float32)
     ri = float(max(row_index, 1))
-    return torch.where(torch.arange(n, device=device) <= row_index, r / ri,
-                       torch.ones_like(r))
+    return torch.where(torch.arange(n) <= row_index, r / ri,
+                       torch.ones_like(r)).to(device)
 
 
 def _row_ramp_down(n: int, row_index: int, device) -> torch.Tensor:
@@ -88,23 +97,25 @@ def _row_ramp_down(n: int, row_index: int, device) -> torch.Tensor:
     if denom == 0:
         denom = float("inf")
     start = max(min(row_index, n), 0)
-    r = torch.arange(n, dtype=torch.float32, device=device)
-    return torch.where(torch.arange(n, device=device) >= start,
-                       (n - 1 - r) / denom, torch.ones_like(r))
+    r = torch.arange(n, dtype=torch.float32)
+    return torch.where(torch.arange(n) >= start, (n - 1 - r) / denom,
+                       torch.ones_like(r)).to(device)
 
 
-def corner_fade_weights(image_a: torch.Tensor
+def corner_fade_weights(image_a: torch.Tensor, color: bool = False
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Corner-overlap weight matrices (grid/serpentine row transitions).
 
     ImageFusion.py:43-190: the quadrant of A with the fewest positive
     pixels locates the overlap; the boundary row/col of A's valid region
     define separable linear ramps, weightB = ramp_rows x ramp_cols,
-    weightA = 1 - weightB.  Returns (wA, wB) of shape (H, W).
+    weightA = 1 - weightB.  In color the quadrant counts count positive
+    channel values, as the reference does.  Returns (wA, wB) of shape
+    (H, W).
     """
     row, col = image_a.shape[0], image_a.shape[1]
     dev = image_a.device
-    valid = _valid_mask(image_a)
+    valid = _valid_mask(image_a, color)
     positive = image_a > 0
     hr, hc = row // 2, col // 2
     quad = [int(positive[0:hr, 0:hc].sum()), int(positive[hr:, 0:hc].sum()),

@@ -80,6 +80,17 @@ def serpentine_positions(n_down: int, n_cols: int, step: Tuple[float, float],
     return pos
 
 
+def _scene(seed: int, frame_hw: Tuple[int, int],
+           positions: List[Tuple[float, float]]):
+    """(rng after the texture, texture covering every frame, positions)."""
+    h, w = frame_hw
+    p = np.asarray(positions, np.float64)
+    rng = np.random.default_rng(seed)
+    tex = textured(rng, int(np.ceil(p[:, 0].max())) + h + 2,
+                   int(np.ceil(p[:, 1].max())) + w + 2)
+    return rng, tex, p
+
+
 def sequence(seed: int, frame_hw: Tuple[int, int],
              positions: List[Tuple[float, float]]):
     """Frames at ``positions`` of one seeded texture.
@@ -87,9 +98,28 @@ def sequence(seed: int, frame_hw: Tuple[int, int],
     Returns ((N, H, W) uint8 frames, (N-1, 2) float64 true pairwise offsets
     (drow, dcol) = position[k+1] - position[k])."""
     h, w = frame_hw
-    p = np.asarray(positions, np.float64)
-    rng = np.random.default_rng(seed)
-    tex = textured(rng, int(np.ceil(p[:, 0].max())) + h + 2,
-                   int(np.ceil(p[:, 1].max())) + w + 2)
+    _, tex, p = _scene(seed, frame_hw, positions)
     frames = np.stack([sample(tex, r, c, h, w) for r, c in positions])
+    return frames, np.diff(p, axis=0)
+
+
+#: per-channel (gain, offset) of the color scene, B, G, R
+CHANNELS = ((0.75, 20.0), (1.0, 0.0), (0.9, 10.0))
+
+
+def color_sequence(seed: int, frame_hw: Tuple[int, int],
+                   positions: List[Tuple[float, float]]):
+    """The scene and truth of ``sequence`` in BGR color: each channel is the
+    texture under its own gain and offset (``CHANNELS``) plus its own unit
+    Gaussian noise, so a swapped or collapsed channel shows; the gray of the
+    frames (cv2's rule) is the texture again up to scale and noise, and
+    registers as the gray sequence does.
+
+    Returns ((N, H, W, 3) uint8 frames, (N-1, 2) float64 true offsets)."""
+    h, w = frame_hw
+    rng, tex, p = _scene(seed, frame_hw, positions)
+    chans = [np.clip(g * tex + o + rng.normal(0.0, 1.0, tex.shape), 0, 255
+                     ).astype(np.float32) for g, o in CHANNELS]
+    frames = np.stack([np.stack([sample(t, r, c, h, w) for t in chans], -1)
+                       for r, c in positions])
     return frames, np.diff(p, axis=0)

@@ -73,6 +73,6 @@ def test_unsupported_fusion_raises():
     with pytest.raises(NotImplementedError, match="item 18"):
         tcompose.compose(_frames(0, 2), [(50, 0)],
                          StitchConfig(fuse_method="average"))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(NotImplementedError, match="item 18"):
         tcompose.compose(np.zeros((2, H, W, 3), np.uint8), [(50, 0)],
-                         StitchConfig())
+                         StitchConfig(fuse_method="average"))

@@ -1,6 +1,7 @@
 """Import hygiene of the port: it never loads jax or the JAX package, and
 every module — the kernel wrappers included — imports on a machine with
-no nvcc and no GPU; the kernels are built only when one is launched."""
+no nvcc and no GPU; the kernels are built only when one is launched, and
+the C++ host runtime only when it is first asked for."""
 import os
 import shutil
 import subprocess
@@ -18,12 +19,14 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 from imagestitch_tpu_torch import _build
+from imagestitch_tpu_torch.io import native_loader
 from imagestitch_tpu_torch.ops.kernels import describe, doh, matcher
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "imagestitch_tpu."))
              or m == "imagestitch_tpu")
 assert not bad, bad
 assert _build._lib is None
+assert native_loader._lib is None and not native_loader._tried
 assert "imagestitch_tpu_torch.ops.kernels.doh" in names
 print("ok", len(names))
 """

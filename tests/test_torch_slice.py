@@ -119,8 +119,8 @@ def test_stitch_files_and_direction_persistence(frames, tmp_path):
 
 @pytest.mark.parametrize("change", [
     dict(fuse_method="average"),
-    dict(color_mode=True),
-    dict(stream_output=True),
+    dict(fuse_method="trigonometric"),
+    dict(fuse_method="multiBandBlending"),
     dict(use_global_solver=True),
 ])
 def test_outside_the_slice_raises(change):
