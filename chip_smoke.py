@@ -8,11 +8,19 @@ Phases, one line of output each:
   2. build    — compile the CUDA kernels of csrc/ for sm_90a, one nvcc per
                 source, all started together;
   3. kernels  — each kernel against its plain PyTorch version at the
-                shapes its paths give it, with CUDA-event times of both:
+                shapes its paths give it, with CUDA-event times of both,
+                its bound (the least time the card could take: the larger
+                of its FP32 operations over 67 TFLOP/s and its bytes, each
+                input read once and each output written once, over
+                3.35 TB/s) and, where one PyTorch call computes the same
+                function, that call's time:
                 K1 and K4 on the four octaves of a 1936x2584 frame, K2 on
                 that frame's 11,616 candidates, K3 on 16 pairs x 4 configs
                 x 1024 x 1024 x 128, K5 on 1024 x 1024 x 128 (the oriented
-                mini pool) and 11,616 x 11,616 x 128 (the fused pool);
+                mini pool) and 11,616 x 11,616 x 128 (the fused pool), K6
+                on its prototype's micro-benchmark (6,144 windows of 24
+                rows x 128 columns of a 4096x2688 atlas), which is also
+                its only path: one call with the counts from 0;
   4. paths    — Stitcher.stitch_batch, with kernels and then with their
                 plain versions, on a seeded 1936x2584 serpentine of 10
                 frames (5 down, 1 right, 4 up) plus, where named, an 11th
@@ -50,6 +58,23 @@ Phases, one line of output each:
                 K1-K4 launched; then one line of phase times (decode, H2D,
                 register, compose, D2H, imwrite), CUDA events for the
                 device phases.
+  6. phase    — the phase-correlation registrations through
+                Stitcher.stitch_batch on a second seeded serpentine of 10
+                1936x2584 frames (5 down, 1 right, 4 up, steps of the iron
+                demo's 1698 rows and 2284 columns, so that the strip-local
+                shifts stay inside the circular range at roi_ratio 0.2)
+                plus the unrelated 11th frame:
+                (h) phase_incre, (i) phase (whole frames, 2x linear
+                padding), (j) hybrid (feature_incre, default FeatureConfig,
+                with phase for the pairs it leaves).
+                Each path: registered pairs within 1 px of the truth; the
+                records' integer fields equal the JAX package's (EXPECTED,
+                from tests/test_torch_phase_paths.py's full-size test) and
+                the port's CPU records on the same frames (the phase part
+                only for (j)), sub-pixel offsets within 1e-3 px of the
+                CPU's; panoramas equal the CPU run's; (h), (i) launch no
+                kernel, (j) K1-K4.  Then one line of the phase searches'
+                device times (CUDA events), attempts and dispatches.
 Then one JSON line with the per-kernel record and, last, the device line.
 Any failed check raises: the exit code is nonzero and no result line is
 printed.  Float32 throughout: TF32 is off for matmuls and cuDNN.
@@ -62,6 +87,50 @@ import subprocess
 import sys
 import tempfile
 import time
+
+
+#: one H100 SXM at 700 W (NVIDIA's data sheet): float32 outside the tensor
+#: cores, and device memory
+FP32_PEAK = 67e12
+HBM_RATE = 3.35e12
+#: FP32 operations of K2 per keypoint (csrc/describe.cu): 256 samples of 37
+#: (two 3-tap smoothings 10, two differences 3 + 9 + 5, the window weight 2,
+#: the 8 sign-split sums 8), then the norm's 128 squares, 128 adds and 128
+#: divides, a square root and its guard
+DESCRIBE_OPS = 256 * 37 + 3 * 128 + 2
+
+
+#: the JAX package's records on the CPU for path (h), (i) and the phase part
+#: of (j) on the phase frames (tests/test_torch_phase_paths.py::
+#: test_cuda_full_size_phase_paths_match_jax prints them): (ok, offset,
+#: direction, scale, attempts), the offset of a failed pair not compared
+_DOWN, _UP = (1698, 0), (-1698, 0)
+EXPECTED = {
+    "phase_incre": [(True, _DOWN, 1, 1, 1)] * 4 + [(True, (0, 2284), 2, 1, 2),
+                                                   (True, _UP, 3, 1, 2)]
+    + [(True, _UP, 3, 1, 1)] * 3 + [(False, None, 0, 0, 12)],
+    "phase": [(True, _DOWN, 1, 0, 1)] * 4 + [(True, (0, 2284), 1, 0, 1)]
+    + [(True, _UP, 1, 0, 1)] * 4 + [(False, None, 0, 0, 1)],
+    # pair 9, the only pair the features leave, searched from direction 3:
+    # every (direction, scale) of roi_ratio 0.2 fails
+    "hybrid": [(False, None, 0, 0, 12)],
+}
+
+
+def doh_operations(h, w, radii):
+    """FP32 operations of K1/K4's response stage and NMS on one (h, w)
+    octave (csrc/doh_common.cuh): per scale of radius r (2r + 1 taps), three
+    vertical correlations on the (h + 2) x (w + 2 + 2r) band and three
+    horizontal ones on the (h + 2) x (w + 2) ring, 2 * taps - 1 operations
+    each per sample; the determinant (4) and the scale max (1) on the ring;
+    then the 8 neighbour maxima and the centre test of the NMS."""
+    ring = (h + 2) * (w + 2)
+    ops = 9 * h * w
+    for s, r in enumerate(radii):
+        taps = 2 * r + 1
+        ops += 3 * (2 * taps - 1) * ((h + 2) * (w + 2 + 2 * r) + ring)
+        ops += (4 + (s > 0)) * ring
+    return ops
 
 
 def cuda_ms(torch, fn, iters=20, warmup=3):
@@ -115,14 +184,17 @@ def main():
     import numpy as np
     from imagestitch_tpu_torch import FeatureConfig, StitchConfig, Stitcher
     from imagestitch_tpu_torch import _build, cli
+    import torch.nn.functional as F
     from imagestitch_tpu_torch.core import compose as compose_mod
     from imagestitch_tpu_torch.core import feature_registration as freg
+    from imagestitch_tpu_torch.core import registration as treg
     from imagestitch_tpu_torch.core import stream_out
     from imagestitch_tpu_torch.io import codec, dataset, native_loader
     from imagestitch_tpu_torch.io.dataset import ImageBatch
     from imagestitch_tpu_torch.ops.kernels import describe as kdesc
     from imagestitch_tpu_torch.ops.kernels import doh as kdoh
     from imagestitch_tpu_torch.ops.kernels import matcher as kmatch
+    from imagestitch_tpu_torch.ops.kernels import window_sum as kws
     from imagestitch_tpu_torch.utils import synthetic
     from imagestitch_tpu_torch.utils.records import SequenceReport
 
@@ -168,14 +240,50 @@ def main():
     sparams = freg._describe_params(cfg_up)
     gray = torch.as_tensor(frames, device=dev)
 
+    # ---- launch counts: set to 0 before a path, read after it
+    counters = {"doh_select": (kdoh, "LAUNCHES"),
+                "doh_score_map": (kdoh, "SCORE_MAP_LAUNCHES"),
+                "describe_atlas": (kdesc, "LAUNCHES"),
+                "top2_l2_coords": (kmatch, "LAUNCHES"),
+                "top2_l2": (kmatch, "TOP2_LAUNCHES"),
+                "window_colsum": (kws, "LAUNCHES")}
+    total = dict.fromkeys(counters, 0)
+
+    def zero_counts():
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+
+    def read_counts(label, expect):
+        """The counts since zero_counts(), checked against ``expect``
+        (None: at least one launch) and added to the totals."""
+        launches = {k: getattr(mod, attr)
+                    for k, (mod, attr) in counters.items()}
+        for name, want in expect.items():
+            if (launches[name] == 0) if want is None else \
+                    (launches[name] != want):
+                raise AssertionError(f"{label}: {name} launched "
+                                     f"{launches[name]} times, want "
+                                     f"{'> 0' if want is None else want}")
+        for k, v in launches.items():
+            total[k] += v
+        return launches
+
     # ---- 3. each kernel against its plain version
     records = []
 
-    def record(name, source, replaces, err, ms, plain_ms):
+    def record(name, source, replaces, err, ms, plain_ms, ops, nbytes,
+               library_ms=None):
+        """One kernel's line; ``ops`` FP32 operations and ``nbytes`` bytes
+        (each input read once, each output written once) give its bound."""
+        t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_RATE
         records.append(dict(name=name, route="cuda",
                             source=f"imagestitch_tpu_torch/csrc/{source}",
                             replaces=replaces, max_abs_err=err, ms=ms,
-                            plain_ms=plain_ms))
+                            plain_ms=plain_ms,
+                            bound_ms=max(t_ops, t_bytes) * 1e3,
+                            bound_by=("operations" if t_ops >= t_bytes
+                                      else "bytes"),
+                            library_ms=library_ms))
 
     # K1 and K4: the four octaves of frame 0, as the pools call them
     spacing = 2.0 ** (1.0 / dparams.n_octave_layers)
@@ -203,10 +311,15 @@ def main():
     if moved > 1e-4 * live_n or err > 1e-4:
         raise AssertionError(f"doh_select: {moved}/{live_n} live slots moved, "
                              f"max err {err}")
+    radii = kdoh._tap_tables(dparams.n_octave_layers, dparams.base_sigma,
+                             spacing, "doh")[0].tolist()
+    doh_ops = sum(doh_operations(*x.shape, radii) for x, _, _ in octaves)
+    px = sum(x.numel() for x, _, _ in octaves)
     record("doh_select", "doh_select.cu",
            "imagestitch_tpu/ops/pallas/doh.py:285", err,
            cuda_ms(torch, lambda: k1(True)),
-           cuda_ms(torch, lambda: k1(False), iters=5))
+           cuda_ms(torch, lambda: k1(False), iters=5), doh_ops,
+           4 * px + sum(16 * x.shape[0] * rc for x, _, rc in octaves))
 
     k4 = lambda use: [kdoh.doh_score_map(x, border=bo, use_kernel=use, **taps)
                       for x, bo, _ in octaves]
@@ -220,7 +333,7 @@ def main():
     record("doh_score_map", "doh_score_map.cu",
            "imagestitch_tpu/ops/pallas/doh.py:337", err4,
            cuda_ms(torch, lambda: k4(True)),
-           cuda_ms(torch, lambda: k4(False), iters=5))
+           cuda_ms(torch, lambda: k4(False), iters=5), doh_ops, 12 * px)
 
     # K2: every candidate of frame 0 from the atlas the pool builds
     _, _, _, atlas, r0, c0 = freg.select_candidates(gray[0], dparams)
@@ -230,10 +343,20 @@ def main():
     if dk.shape != (11616, 128):
         raise AssertionError(f"describe_atlas: shape {tuple(dk.shape)}")
     torch.testing.assert_close(dk, dp, rtol=0, atol=1e-5)
+    # bytes: the atlas pixels the 18x18 windows cover (starts clamped as the
+    # kernel clamps them), the starts, the weight table, the descriptors
+    win = torch.arange(kdesc.WIN, device=dev)
+    rr = r0.long().clamp(0, atlas.shape[0] - kdesc.WIN)[:, None, None] + \
+        win[None, :, None]
+    cc = c0.long().clamp(0, atlas.shape[1] - kdesc.WIN)[:, None, None] + \
+        win[None, None, :]
+    covered = torch.zeros(atlas.shape, dtype=torch.bool, device=dev)
+    covered[rr, cc] = True
     record("describe_atlas", "describe.cu",
            "imagestitch_tpu/ops/pallas/describe.py:226",
            float((dk - dp).abs().max()), cuda_ms(torch, lambda: k2(True)),
-           cuda_ms(torch, lambda: k2(False)))
+           cuda_ms(torch, lambda: k2(False)), DESCRIBE_OPS * r0.numel(),
+           4 * int(covered.sum()) + 8 * r0.numel() + 4 * 256 + 4 * dk.numel())
 
     # K3: 16 pair slots x 4 directions at scale 1 from the serpentine's pool
     pool = freg.pool_features(gray[:10], dparams, sparams)
@@ -254,9 +377,17 @@ def main():
     if not (torch.equal(got[3][same], ref[3][same])
             and torch.equal(got[4][same], ref[4][same])):
         raise AssertionError("top2_l2_coords: matched coordinates differ")
+    bsz, ka, dim = da.shape
     record("top2_l2_coords", "matcher.cu",
            "imagestitch_tpu/ops/pallas/matcher.py:150", err3,
-           cuda_ms(torch, lambda: k3(True)), cuda_ms(torch, lambda: k3(False)))
+           cuda_ms(torch, lambda: k3(True)), cuda_ms(torch, lambda: k3(False)),
+           2 * bsz * ka * db.shape[1] * dim,
+           4 * (da.numel() + db.numel() + 2 * rb.numel() + 5 * bsz * ka)
+           + vb.numel())
+    # the nearest PyTorch yardstick is two calls (Euclidean, no mask), so
+    # it is a note and not the kernel's library_ms
+    cdist_ms = {"K3": cuda_ms(torch, lambda: torch.cdist(da, db).topk(
+        2, largest=False))}
 
     # K5: frames 0 and 1 of the oriented 1024-slot mini pool, and of the
     # fused 11,616-slot pool (one whole-image pair each)
@@ -274,41 +405,64 @@ def main():
     if [tuple(s[0].shape) for s in k5_sets] != [(1, 1024, 128),
                                                 (1, 11616, 128)]:
         raise AssertionError(f"top2_l2: shapes {[s[0].shape for s in k5_sets]}")
+    a5, b5, v5 = k5_sets[1]
     record("top2_l2", "matcher.cu", "imagestitch_tpu/ops/pallas/matcher.py:93",
-           err5, k5_ms[1], k5_plain_ms[1])
+           err5, k5_ms[1], k5_plain_ms[1],
+           2 * a5.shape[1] * b5.shape[1] * a5.shape[2],
+           4 * (a5.numel() + b5.numel() + 3 * a5.shape[1]) + v5.numel())
+    cdist_ms["K5"] = cuda_ms(torch, lambda: torch.cdist(a5, b5).topk(
+        2, largest=False), iters=5)
+
+    # K6: its prototype's micro-benchmark (profile_r4_micro2.py:115-125),
+    # its only path: one call with the counts from 0, then the checks
+    rng = np.random.default_rng(0)
+    ha6, wa6, k6 = 3840, 2688, 6144
+    atlas6 = rng.random((ha6 + 256, wa6), np.float32)
+    r06 = np.sort(rng.integers(0, ha6 - 24, k6)).astype(np.int32)
+    ca6 = (rng.integers(0, (wa6 - 256) // 128, k6) * 128).astype(np.int32)
+    a6, r6, c6 = (torch.as_tensor(x, device=dev) for x in (atlas6, r06, ca6))
+    zero_counts()
+    out6 = kws.window_colsum(a6, r6, c6)
+    torch.cuda.synchronize()
+    read_counts("K6 micro-benchmark", {"window_colsum": 1})
+    if not torch.equal(out6, kws.window_colsum(a6, r6, c6, use_kernel=False)):
+        raise AssertionError("window_colsum: not bit-equal to the plain "
+                             "version")
+    # the script's own check (:172-173), on every window
+    script = np.stack([atlas6[r:r + 24, c:c + 256].sum(0)[:128]
+                       for r, c in zip(r06, ca6)])
+    err6 = float(np.abs(out6.cpu().numpy() - script).max())
+    if err6 > 1e-5:
+        raise AssertionError(f"window_colsum: {err6} from the script's check")
+    # one PyTorch call of the same function: a sum-bag over 128-column
+    # segments of the atlas rows
+    seg = wa6 // 128
+    bags = ((r6.long()[:, None] + torch.arange(24, device=dev)) * seg
+            + (c6.long() // 128)[:, None])
+    bag_sum = lambda: F.embedding_bag(bags, a6.view(-1, 128), mode="sum")
+    torch.testing.assert_close(bag_sum(), out6, rtol=0, atol=1e-5)
+    touched = np.zeros((ha6 + 256, seg), bool)
+    for i in range(24):
+        touched[r06 + i, ca6 // 128] = True
+    record("window_colsum", "window_colsum.cu",
+           "scripts/profile_r4_micro2.py:150", 0.0,
+           cuda_ms(torch, lambda: kws._launch(a6, r6, c6, 24, 128)),
+           cuda_ms(torch, lambda: kws.window_colsum_plain(a6, r6, c6)),
+           23 * k6 * 128, 512 * int(touched.sum()) + 8 * k6 + 4 * out6.numel(),
+           cuda_ms(torch, bag_sum))
     print("kernels: " + "; ".join(
-        f"{r['name']} max_abs_err {r['max_abs_err']:.3g}, {r['ms']:.3f} ms "
-        f"(plain {r['plain_ms']:.3f} ms)" for r in records)
+        f"{r['name']} max_abs_err {r['max_abs_err']:.3g}, {r['ms']:.4f} ms "
+        f"(plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
+        f"{r['bound_by']}, library {r['library_ms']})" for r in records)
         + f"; K1 live slots {live_n}, moved {moved}; K4 live {live4}; K3 "
         f"argmin ties {ties3}; K5 argmin ties {ties5}, at 1024^2 "
-        f"{k5_ms[0]:.3f} ms (plain {k5_plain_ms[0]:.3f} ms)")
+        f"{k5_ms[0]:.3f} ms (plain {k5_plain_ms[0]:.3f} ms); cdist + topk "
+        f"(not the same function: Euclidean, unmasked) K3 shape "
+        f"{cdist_ms['K3']:.3f} ms, K5 shape {cdist_ms['K5']:.3f} ms; K6 "
+        f"from the script's numpy check {err6:.3g}, windows touch "
+        f"{int(touched.sum())} row segments of 512 B")
 
     # ---- 4. the paths end to end
-    counters = {"doh_select": (kdoh, "LAUNCHES"),
-                "doh_score_map": (kdoh, "SCORE_MAP_LAUNCHES"),
-                "describe_atlas": (kdesc, "LAUNCHES"),
-                "top2_l2_coords": (kmatch, "LAUNCHES"),
-                "top2_l2": (kmatch, "TOP2_LAUNCHES")}
-    total = dict.fromkeys(counters, 0)
-
-    def zero_counts():
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
-
-    def read_counts(label, expect):
-        """The counts since zero_counts(), checked against ``expect``
-        (None: at least one launch) and added to the totals."""
-        launches = {k: getattr(mod, attr)
-                    for k, (mod, attr) in counters.items()}
-        for name, want in expect.items():
-            if (launches[name] == 0) if want is None else \
-                    (launches[name] != want):
-                raise AssertionError(f"{label}: {name} launched "
-                                     f"{launches[name]} times, want "
-                                     f"{'> 0' if want is None else want}")
-        for k, v in launches.items():
-            total[k] += v
-        return launches
 
     def records_of(report):
         return (report.num_ok, report.offsets, report.confidences,
@@ -558,6 +712,152 @@ def main():
               f"differ")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+    # ---- 6. the phase-correlation registrations
+    t0 = time.perf_counter()
+    ppos = synthetic.serpentine_positions(5, 2, (1698.37, 2284.21))
+    pseq, ptruth = synthetic.sequence(7, (h, w), ppos)
+    pframes = np.concatenate([pseq, other])
+    pbatch = ImageBatch(gray=pframes, color=None,
+                        files=[f"phase-{i}" for i in range(len(pframes))])
+    pgray = torch.as_tensor(pframes, device=dev)
+    print(f"phase data: {pframes.shape} uint8 in "
+          f"{time.perf_counter() - t0:.1f} s; true offsets "
+          f"{[tuple(round(v, 2) for v in t) for t in ptruth.tolist()]}")
+
+    class Recording(Stitcher):
+        """The Stitcher, keeping the records of its last registration."""
+
+        def register(self, gray):
+            self.records = super().register(gray)
+            return self.records
+
+    def integers(recs):
+        # a failed whole-image record's offset is a noise peak: not compared
+        return [(r.ok, tuple(r.offset) if r.ok else None, r.direction,
+                 r.scale, r.attempts) for r in recs]
+
+    def hold(label, got, ref, what, atol=1e-3):
+        """Integer fields of ``got`` equal ``ref``'s (records or tuples);
+        with records, the sub-pixel offsets within ``atol`` px.  Returns the
+        largest sub-pixel and response gaps."""
+        want = ref if ref and isinstance(ref[0], tuple) else integers(ref)
+        if integers(got) != want:
+            raise AssertionError(f"{label}: records {integers(got)}, "
+                                 f"{what}'s {want}")
+        if ref and isinstance(ref[0], tuple):
+            return 0.0, 0.0
+        sub = max([abs(a - b) for g, r in zip(got, ref) if g.ok
+                   for a, b in zip(g.offset_subpix, r.offset_subpix)],
+                  default=0.0)
+        resp = max(abs(g.confidence - r.confidence) for g, r in zip(got, ref))
+        if sub > atol:
+            raise AssertionError(f"{label}: sub-pixel offsets {sub} px from "
+                                 f"{what}'s")
+        return sub, resp
+
+    def run_phase_path(label, cfg, expect, segments):
+        """Warm-up, then the counted run; checks segments, launches and
+        every registered pair against the truth.  Returns the Stitcher, its
+        results and the warm wall."""
+        Recording(cfg, device=dev).stitch_batch(pbatch)
+        torch.cuda.synchronize()
+        zero_counts()
+        st = Recording(cfg, device=dev)
+        t0 = time.perf_counter()
+        res = st.stitch_batch(pbatch)
+        wall = time.perf_counter() - t0
+        launches = read_counts(label, expect)
+        if [r.file_range for r in res] != segments:
+            raise AssertionError(f"{label}: segments "
+                                 f"{[r.file_range for r in res]}")
+        for k, (r, t) in enumerate(zip(st.records, ptruth)):
+            if r.ok and max(abs(r.offset[0] - t[0]),
+                            abs(r.offset[1] - t[1])) >= 1:
+                raise AssertionError(f"{label}: pair {k}: offset {r.offset}, "
+                                     f"truth {t}")
+        pano = res[0].image
+        if pano.dtype != np.uint8 or pano.ndim != 2 or (pano > 0).mean() < 0.9:
+            raise AssertionError(f"{label}: panorama {pano.dtype} "
+                                 f"{pano.shape}")
+        return st, res, wall, launches
+
+    def report_line(label, st, res, wall, launches, gaps):
+        rep = res[0].report
+        subpix = [tuple(round(v, 4) for v in r.offset_subpix)
+                  for r in st.records]
+        print(f"slice {label}: {len(pframes)} x {h}x{w} frames, "
+              f"{rep.num_ok}/{rep.num_pairs} pairs, segments "
+              f"{[r.file_range for r in res]}, offsets {rep.offsets}, "
+              f"sub-pixel {subpix} "
+              f"(confidence {[round(c, 4) for c in rep.confidences]}, "
+              f"directions {rep.directions}, scales {rep.scales}, attempts "
+              f"{rep.attempts}), panorama {res[0].image.shape}; card against "
+              f"CPU: sub-pixel gap {gaps[0]:.3g} px, response gap "
+              f"{gaps[1]:.3g}; warm wall {wall:.3f} s; launches {launches}")
+
+    no_kernel = dict.fromkeys(counters, 0)
+    phase_segments = [(0, 10), (10, 11)]
+    searches = []
+    for label, reg in (("(h) phase_incre", "phase_incre"),
+                       ("(i) phase", "phase")):
+        cfg = base.replace(registration=reg)
+        st, res, wall, launches = run_phase_path(
+            label, cfg, no_kernel, phase_segments)
+        hold(label, st.records, EXPECTED[reg], "the JAX package")
+        cpu = Recording(cfg, device="cpu")
+        cres = cpu.stitch_batch(pbatch)
+        # whole frames pad to 3888x5184: float32 FFTs of 20M points in two
+        # libraries move the centroid by up to ~1e-3 px
+        gaps = hold(label, st.records, cpu.records, "the CPU",
+                    5e-3 if reg == "phase" else 1e-3)
+        if [r.file_range for r in cres] != [r.file_range for r in res] or \
+                not all(np.array_equal(a.image, b.image)
+                        for a, b in zip(res, cres)):
+            raise AssertionError(f"{label}: panoramas differ from the CPU's")
+        report_line(label, st, res, wall, launches, gaps)
+        fn = (treg.register_sequence_phase if reg == "phase_incre"
+              else treg.register_sequence_phase_whole)
+        recs, ms, _ = timed(torch, lambda: fn(pgray, cfg))
+        searches.append(f"{label} {ms:.2f} ms, {sum(r.attempts for r in recs)}"
+                        f" attempts, " + (
+                            f"{treg.LAST_PHASE_STATS['dispatches']} dispatches"
+                            if reg == "phase_incre" else
+                            f"1 dispatch of {len(recs)} pairs"))
+
+    label = "(j) hybrid"
+    cfg = base.replace(registration="hybrid")
+    st, res, wall, launches = run_phase_path(
+        label, cfg, {"doh_select": 44, "describe_atlas": 11,
+                     "top2_l2_coords": None, "doh_score_map": 8,
+                     "top2_l2": 0, "window_colsum": 0},
+        phase_segments)
+    feat = freg.register_sequence_features_incre(pgray, cfg)
+    failed = [k for k, r in enumerate(feat) if not r.ok]
+    if [st.records[k] for k in range(len(feat)) if k not in failed] != \
+            [r for k, r in enumerate(feat) if k not in failed]:
+        raise AssertionError(f"{label}: a feature-ok pair lost its record")
+    if treg.LAST_PHASE_STATS["pairs_evaluated"] != failed:
+        raise AssertionError(f"{label}: the phase fallback evaluated pairs "
+                             f"{treg.LAST_PHASE_STATS['pairs_evaluated']}, "
+                             f"not the failed {failed}")
+    direction = next((feat[k].direction for k in range(failed[0] - 1, -1, -1)
+                      if feat[k].ok and feat[k].direction), cfg.direction)
+    part = [st.records[k] for k in failed]
+    hold(label, part, EXPECTED["hybrid"], "the JAX package")
+    pcfg = cfg.replace(direction=direction)
+    gaps = hold(label, part, treg.register_sequence_phase(
+        pframes, pcfg, pairs=failed), "the CPU")
+    report_line(label, st, res, wall, launches, gaps)
+    recs, ms, _ = timed(torch, lambda: treg.register_sequence_phase(
+        pgray, pcfg, pairs=failed))
+    searches.append(f"{label} phase part (pairs {failed}, from direction "
+                    f"{direction}) {ms:.2f} ms, "
+                    f"{sum(r.attempts for r in recs)} attempts, "
+                    f"{treg.LAST_PHASE_STATS['dispatches']} dispatches")
+    print("phase searches (events, host replay included): "
+          + "; ".join(searches))
+
     for r in records:
         r["launches"] = total[r["name"]]
         if r["launches"] <= 0:

@@ -47,6 +47,8 @@ SIGNATURES = {
     "matcher_launch": [P, P, P, P, P, I, I, I, I, P, P, P, P, P, P],
     # da, db, valid_b, batch, ka, kb, d, d0, i0, d1, stream
     "matcher_top2_launch": [P, P, P, I, I, I, I, P, P, P, P],
+    # atlas, ah, aw, r0, ca, k, rows, cols, out, stream
+    "window_colsum_launch": [P, I, I, P, P, I, I, I, P, P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -76,9 +76,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "solver before composition")
     s.add_argument("--report", help="write per-pair JSON report here")
     s.add_argument("--quiet", action="store_true")
-    s.add_argument("--device", default=None,
+    s.add_argument("--device", default="cuda",
                    help="torch device that registers and composes "
-                        "(default: cuda when available, else cpu)")
+                        "(default: cuda, which raises without CUDA; "
+                        "--device cpu runs on the CPU)")
     return p
 
 
@@ -115,11 +116,10 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.command != "stitch":
         return 1
-    device = torch.device(args.device or (
-        "cuda" if torch.cuda.is_available() else "cpu"))
+    device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: torch.cuda.is_available() "
-                         f"is False")
+                         f"is False; pass --device cpu to run on the CPU")
     st = Stitcher(config_from_args(args), device=device)
     written = st.stitch_project_set(
         args.project, args.output, args.file_num, start_num=args.start_num,

@@ -43,11 +43,10 @@ from . import registration as reg
 def check_supported(cfg: StitchConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP item that will port it,
     for a registration configuration outside the ported slice."""
+    if cfg.registration in ("phase_incre", "phase"):
+        return      # the phase paths read no feature, enhance or vote knob
     f = cfg.features
     todo = []
-    if cfg.registration not in ("feature_incre", "feature"):
-        todo.append(f"registration={cfg.registration!r} (ROADMAP Queue 1 "
-                    f"item 14)")
     if f.strict_roi_detect or cfg.enhance.enabled:
         todo.append("strict_roi_detect / enhance (ROADMAP Queue 1 item 15)")
     if f.box_filter or f.method != "surf":
@@ -487,18 +486,13 @@ def _oriented_fallback_incre(images: torch.Tensor,
     return out
 
 
-def _as_images(images, device) -> torch.Tensor:
-    images = torch.as_tensor(images)
-    return images if device is None else images.to(device)
-
-
 def register_sequence_features_incre(images, cfg: StitchConfig, device=None
                                      ) -> List[reg.PairRegistration]:
     """Incremental ROI feature search over an (N, H, W) grayscale batch
     (numpy or tensor) on ``device`` (default: the tensor's own device,
     the CPU for numpy input)."""
     check_supported(cfg)
-    images = _as_images(images, device)
+    images = reg._as_images(images, device)
     n, h, w = images.shape
     if n < 2:
         return []
@@ -560,7 +554,7 @@ def register_sequence_features(images, cfg: StitchConfig, device=None
     that fail with some valid match retry over an oriented pool of their
     frames."""
     check_supported(cfg)
-    images = _as_images(images, device)
+    images = reg._as_images(images, device)
     n = images.shape[0]
     if n < 2:
         return []

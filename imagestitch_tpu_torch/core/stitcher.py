@@ -2,7 +2,9 @@
 
 Port of the single-device path of ``imagestitch_tpu/core/stitcher.py``
 (:54-334):
-  * ``register``           — pooled incremental or whole-image feature search;
+  * ``register``           — the five registration strategies: pooled
+    incremental or whole-image feature search, incremental or whole-image
+    phase correlation, and features with a phase fallback (hybrid);
   * ``stitch_batch``       — flowStitchWithMutiple (reference
     Stitcher.py:96-127): register every pair up front (or load the records
     from a checkpoint), split into segments at failed pairs, compose each
@@ -62,40 +64,46 @@ class Stitcher:
 
     ``checkpoint_dir``: registration records are saved there per file list
     and loaded instead of registering again.  ``device``: where
-    registration and composition run (a ``torch.device`` or its name);
-    None takes the device of the input tensors (the CPU for numpy input).
-    The search direction persists across calls (reference parity:
-    Stitcher.direction is a class attribute, Stitcher.py:361).
+    registration and composition run (a ``torch.device`` or its name), the
+    card unless the caller asks for the CPU (``device="cpu"``); a CUDA
+    device without CUDA raises.  The search direction persists across calls
+    (reference parity: Stitcher.direction is a class attribute,
+    Stitcher.py:361).
     """
 
     def __init__(self, cfg: StitchConfig, checkpoint_dir: Optional[str] = None,
-                 mesh=None, device=None):
+                 mesh=None, device="cuda"):
         if mesh is not None:
             raise NotImplementedError("a device mesh is not ported yet "
                                       "(ROADMAP Queue 1 item 22)")
         check_supported(cfg)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"Stitcher(device={str(self.device)!r}): "
+                               f"torch.cuda.is_available() is False; pass "
+                               f"device='cpu' to run on the CPU")
         self.cfg = cfg
         self.checkpoint_dir = checkpoint_dir
-        self.device = None if device is None else torch.device(device)
         self._direction = cfg.direction
 
     def _to_device(self, x) -> torch.Tensor:
-        x = torch.as_tensor(x)
-        return x if self.device is None else x.to(self.device)
+        return torch.as_tensor(x).to(self.device)
 
     # -- registration ------------------------------------------------------
 
     def register(self, gray) -> List[registration.PairRegistration]:
         """Register all adjacent pairs of an (N, H, W) grayscale batch."""
         cfg = self.cfg.replace(direction=self._direction)
-        if cfg.registration == "feature_incre":
-            recs = registration.register_sequence_features_incre(
-                gray, cfg, device=self.device)
-        elif cfg.registration == "feature":
-            recs = registration.register_sequence_features(
-                gray, cfg, device=self.device)
-        else:
+        registrar = {
+            "phase_incre": registration.register_sequence_phase,
+            "phase": registration.register_sequence_phase_whole,
+            "feature_incre": registration.register_sequence_features_incre,
+            "feature": registration.register_sequence_features,
+            "hybrid": registration.register_sequence_hybrid,
+        }.get(cfg.registration)
+        if registrar is None:
             raise ValueError(cfg.registration)
+        recs = registrar(gray, cfg, device=self.device)
         self._after_register(recs)
         return recs
 
@@ -203,21 +211,21 @@ class Stitcher:
         """Stitch a file sequence with pipelined ingest: decode of chunk
         k+1 overlaps the copy to the device and the device work of chunk k.
         On the gray ``feature_incre`` path without checkpoints the decode
-        overlaps the pool itself (io/prefetch.register_sequence_pipelined)."""
+        overlaps the pool itself (io/prefetch.register_sequence_pipelined);
+        the other strategies register the loaded batch."""
         from ..io import prefetch
         cfg = self.cfg
-        device = self.device or torch.device("cpu")
         if (cfg.registration == "feature_incre"
                 and self.checkpoint_dir is None and not cfg.color_mode):
             recs, gray_dev, gray_host = prefetch.register_sequence_pipelined(
-                files, cfg.replace(direction=self._direction), device,
+                files, cfg.replace(direction=self._direction), self.device,
                 keep_host=cfg.stream_output)
             self._after_register(recs)
             batch = dataset.ImageBatch(gray=gray_dev, color=None,
                                        files=list(files), gray_host=gray_host)
             return self.stitch_batch(batch, recs=recs)
         return self.stitch_batch(prefetch.load_batch_pipelined(
-            files, cfg.color_mode, device))
+            files, cfg.color_mode, self.device))
 
     # -- dataset orchestration (L4) ----------------------------------------
 

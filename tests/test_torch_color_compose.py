@@ -96,7 +96,7 @@ def test_default_config_color_stitch_matches_jax():
         route_pools_as_on_tpu(mp)
         ref = JStitcher(jcfg).stitch_batch(JImageBatch(gray=gray, color=color,
                                                        files=files))
-    got = Stitcher(config_from_jax(jcfg)).stitch_batch(
+    got = Stitcher(config_from_jax(jcfg), device="cpu").stitch_batch(
         ImageBatch(gray=gray, color=color, files=files))
     assert [r.file_range for r in got] == [(0, 4), (4, 5)]
     assert_segments_equal(got, ref)

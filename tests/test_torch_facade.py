@@ -79,15 +79,15 @@ def test_checkpoint_skips_registration(color, tmp_path, monkeypatch):
     gray = color[:4, ..., 1]
     batch = ImageBatch(gray=gray, color=None, files=[f"f{i}" for i in
                                                      range(4)])
-    first = Stitcher(_gray_cfg(), checkpoint_dir=str(tmp_path)).stitch_batch(
-        batch)
+    first = Stitcher(_gray_cfg(), checkpoint_dir=str(tmp_path),
+                     device="cpu").stitch_batch(batch)
     assert len(os.listdir(tmp_path)) == 1
 
     def no_register(self, gray):
         raise AssertionError("registered again")
     monkeypatch.setattr(Stitcher, "register", no_register)
-    again = Stitcher(_gray_cfg(), checkpoint_dir=str(tmp_path)).stitch_batch(
-        batch)
+    again = Stitcher(_gray_cfg(), checkpoint_dir=str(tmp_path),
+                     device="cpu").stitch_batch(batch)
     assert again[0].offsets == first[0].offsets
     np.testing.assert_array_equal(again[0].image, first[0].image)
 
@@ -98,7 +98,8 @@ def test_checkpoint_skips_registration(color, tmp_path, monkeypatch):
 def test_stitch_project_set_names(color, tmp_path, capsys, n, names):
     proj = _project(tmp_path, color[:n])
     out = str(tmp_path / "out")
-    written = Stitcher(_gray_cfg(print_log=True)).stitch_project_set(
+    written = Stitcher(_gray_cfg(print_log=True),
+                       device="cpu").stitch_project_set(
         proj, out, 2, file_extension="png", output_extension="png")
     assert written == [os.path.join(out, f) for f in names]
     assert sorted(os.listdir(out)) == names
@@ -118,27 +119,27 @@ def test_stream_output_routes(color, monkeypatch, route):
         pytest.skip("the C++ runtime does not build here")
     gray = color[:4, ..., 1]
     files = [f"f{i}" for i in range(4)]
-    res = Stitcher(_gray_cfg(stream_output=True)).stitch_batch(
+    res = Stitcher(_gray_cfg(stream_output=True), device="cpu").stitch_batch(
         ImageBatch(gray=gray, color=None, files=files))
     offs = res[0].offsets
     want = (stream_out.compose_host(gray, offs, _gray_cfg())
             if route == "native" else compose.compose(gray, offs, _gray_cfg()))
     np.testing.assert_array_equal(res[0].image, want)
     cfg = _gray_cfg(stream_output=True, color_mode=True)
-    res = Stitcher(cfg).stitch_batch(ImageBatch(gray=gray, color=color[:4],
-                                                files=files))
+    res = Stitcher(cfg, device="cpu").stitch_batch(
+        ImageBatch(gray=gray, color=color[:4], files=files))
     np.testing.assert_array_equal(
         res[0].image, stream_out.compose_color_host(color[:4], offs, cfg))
 
 
 def test_default_configurations_construct():
-    Stitcher(StitchConfig())
-    Stitcher(StitchConfig(stream_output=True))
-    Stitcher(StitchConfig(color_mode=False, stream_output=True))
+    Stitcher(StitchConfig(), device="cpu")
+    Stitcher(StitchConfig(stream_output=True), device="cpu")
+    Stitcher(StitchConfig(color_mode=False, stream_output=True), device="cpu")
     with pytest.raises(NotImplementedError, match="item 18"):
-        Stitcher(StitchConfig(fuse_method="trigonometric"))
+        Stitcher(StitchConfig(fuse_method="trigonometric"), device="cpu")
     with pytest.raises(NotImplementedError, match="item 20"):
-        Stitcher(StitchConfig(use_global_solver=True))
+        Stitcher(StitchConfig(use_global_solver=True), device="cpu")
 
 
 def test_cli_device_cuda_without_cuda_raises(tmp_path, monkeypatch):

@@ -20,7 +20,7 @@ for name in names:
     importlib.import_module(name)
 from imagestitch_tpu_torch import _build
 from imagestitch_tpu_torch.io import native_loader
-from imagestitch_tpu_torch.ops.kernels import describe, doh, matcher
+from imagestitch_tpu_torch.ops.kernels import describe, doh, matcher, window_sum
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib", "imagestitch_tpu."))
              or m == "imagestitch_tpu")
@@ -52,10 +52,11 @@ def test_port_imports_without_jax_or_cuda():
 
 def test_cpu_tensors_take_the_plain_versions():
     from imagestitch_tpu_torch import _build
-    from imagestitch_tpu_torch.ops.kernels import describe, doh, matcher
+    from imagestitch_tpu_torch.ops.kernels import (describe, doh, matcher,
+                                                   window_sum)
     counts = lambda: (doh.LAUNCHES, doh.SCORE_MAP_LAUNCHES,
                       describe.LAUNCHES, matcher.LAUNCHES,
-                      matcher.TOP2_LAUNCHES)
+                      matcher.TOP2_LAUNCHES, window_sum.LAUNCHES)
     before = counts()
     img = torch.rand(64, 80) * 255
     doh.doh_select(img, r_cands=2, use_kernel=True)
@@ -66,6 +67,9 @@ def test_cpu_tensors_take_the_plain_versions():
     valid = torch.ones(1, 8, dtype=torch.bool)
     matcher.top2_l2_coords(d, d, valid, torch.zeros(1, 8), torch.zeros(1, 8))
     matcher.top2_l2(d, d, valid, use_kernel=True)
+    window_sum.window_colsum(img, torch.zeros(3, dtype=torch.int32),
+                             torch.zeros(3, dtype=torch.int32), rows=24,
+                             cols=32, use_kernel=True)
     assert counts() == before
     assert _build._lib is None
 

@@ -83,7 +83,7 @@ def stitch_both(frames, jcfg):
     files = [f"f{i}" for i in range(len(frames))]
     ref = JStitcher(jcfg).stitch_batch(
         JImageBatch(gray=frames, color=None, files=files))
-    got = Stitcher(config_from_jax(jcfg)).stitch_batch(
+    got = Stitcher(config_from_jax(jcfg), device="cpu").stitch_batch(
         ImageBatch(gray=frames, color=None, files=files))
     return got, ref
 

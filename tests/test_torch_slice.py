@@ -77,7 +77,7 @@ def test_stitch_batch_matches_jax_chain(frames):
                          features=JFeatureConfig(upright=True,
                                                  max_keypoints=256))
     jrecs, jsegs = _jax_chain(frames, jcfg)
-    res = Stitcher(config_from_jax(jcfg)).stitch_batch(
+    res = Stitcher(config_from_jax(jcfg), device="cpu").stitch_batch(
         ImageBatch(gray=frames, color=None,
                    files=[f"f{i}" for i in range(len(frames))]))
     rep = res[0].report
@@ -107,7 +107,7 @@ def test_stitch_files_and_direction_persistence(frames, tmp_path):
     cfg = StitchConfig(registration="feature_incre", direction=1,
                        direct_incre=1, roi_ratio=0.2, color_mode=False,
                        features=FeatureConfig(upright=True, max_keypoints=256))
-    st = Stitcher(cfg)
+    st = Stitcher(cfg, device="cpu")
     res = st.stitch_files(files)
     ref = st.stitch_batch(ImageBatch(gray=frames[:4], color=None,
                                      files=files))
@@ -128,7 +128,7 @@ def test_outside_the_slice_raises(change):
     test_torch_unported.py."""
     cfg = StitchConfig(color_mode=False).replace(**change)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Stitcher(cfg)
+        Stitcher(cfg, device="cpu")
 
 
 def test_mesh_and_oriented_fallback_raise(frames, monkeypatch):
@@ -145,13 +145,13 @@ def test_mesh_and_oriented_fallback_raise(frames, monkeypatch):
     cfg = StitchConfig(color_mode=False,
                        features=FeatureConfig(max_keypoints=256))
     with pytest.raises(NotImplementedError, match="item 22"):
-        Stitcher(cfg, mesh=object())
+        Stitcher(cfg, mesh=object(), device="cpu")
     up = Stitcher(cfg.replace(features=dataclasses.replace(
-        cfg.features, upright=True))).register(frames)
+        cfg.features, upright=True)), device="cpu").register(frames)
     assert not up[3].ok and up[3].confidence > 0
     route_pools_as_on_tpu(monkeypatch)
     calls = count_score_map_frames(monkeypatch, tfr)
-    recs = Stitcher(cfg).register(frames)
+    recs = Stitcher(cfg, device="cpu").register(frames)
     assert calls == [(H, W)] * 2          # the fallback's two-frame pool
     # roi_ratio 0.1: six scales x four directions, all tried again
     assert recs[:3] == up[:3] and recs[3].attempts == up[3].attempts == 24
