@@ -34,9 +34,9 @@ I = ctypes.c_int
 F = ctypes.c_float
 #: C signature of every exported launcher (all return cudaGetLastError())
 SIGNATURES = {
-    # img, h, w, r_cands, threshold, border, n_scales, radii*, s4*, taps*,
-    # sc, col, dr, dc, stream
-    "doh_select_launch": [P, I, I, I, F, I, I, P, P, P, P, P, P, P, P],
+    # atlas, pitch, n_oct, bands*, threshold, n_scales, radii*, s4*, taps*,
+    # sc, col, dr, dc, scratch, scratch_entries, stream
+    "doh_select_launch": [P, I, I, P, F, I, P, P, P, P, P, P, P, P, I, P],
     # img, h, w, threshold, border, n_scales, radii*, s4*, taps*,
     # score, raw, stream
     "doh_score_map_launch": [P, I, I, F, I, I, P, P, P, P, P, P],

@@ -120,14 +120,27 @@ def plan_compose(offsets: Sequence[Tuple[int, int]],
     return placement, steps, pairwise
 
 
+def resolve_device(device, caller: str) -> torch.device:
+    """``device`` as a torch.device; a CUDA device without CUDA raises,
+    naming ``device='cpu'`` (no entry point falls back to the CPU)."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{caller}(device={str(device)!r}): "
+                           f"torch.cuda.is_available() is False; pass "
+                           f"device='cpu' to run on the CPU")
+    return device
+
+
 def compose(images, offsets: Sequence[Tuple[int, int]], cfg: StitchConfig,
-            return_device: bool = False):
+            return_device: bool = False, device="cuda"):
     """Compose a registered sequence into one uint8 panorama.
 
-    ``images``: (N, H, W) gray or (N, H, W, 3) BGR uint8, numpy or a tensor
-    on the device that composes (numpy composes on the CPU).  ``offsets``:
-    N-1 pairwise (drow, dcol) ints.  Returns the host numpy panorama, or
-    with ``return_device`` the uint8 tensor where it was composed.  Parity
+    ``images``: (N, H, W) gray or (N, H, W, 3) BGR uint8.  A tensor composes
+    where it lies; numpy frames go to ``device``, the card unless the
+    caller passes ``device="cpu"`` (without CUDA the card raises).
+    ``offsets``: N-1 pairwise (drow, dcol) ints.  Returns the host numpy
+    panorama, or with ``return_device`` the uint8 tensor where it was
+    composed.  Parity
     with Stitcher.py:440-486: image i fuses only against the occupancy rect
     of image i-1, the fuse rect sees the canvas before and after pasting
     image i, and fusion uses the pairwise offset.
@@ -136,7 +149,9 @@ def compose(images, offsets: Sequence[Tuple[int, int]], cfg: StitchConfig,
         raise NotImplementedError(
             f"fuse_method={cfg.fuse_method!r} is not ported yet (ROADMAP "
             f"Queue 1 item 18)")
-    images = torch.as_tensor(images)
+    if not isinstance(images, torch.Tensor):
+        images = torch.as_tensor(images).to(resolve_device(device,
+                                                           "compose"))
     color = images.dim() == 4
     n, h, w = images.shape[:3]
     if len(offsets) != n - 1:

@@ -15,8 +15,9 @@ Port of ``imagestitch_tpu/core/feature_registration.py``:
     (reference: Stitcher.py:260-304): every adjacent pair matched over
     whole frames (K5) and mode-voted, with the same oriented retry.
 
-Pools, per frame (``pool_features``): the fused per-row-select pool (K1 per
-octave, K2 over the pyramid atlas) for upright SURF with ``fused_select``;
+Pools, per frame (``pool_features``): the fused per-row-select pool (K1
+over the octave bands of the pyramid atlas, one call a frame, and K2 over
+the same atlas) for upright SURF with ``fused_select``;
 otherwise the score-map pool (K4 per octave, exact top-k, sub-pixel
 refinement, global top-k, dense describe), upright or oriented.
 
@@ -131,35 +132,42 @@ def octaves(img: torch.Tensor, params: detect.DetectParams):
     return out
 
 
+def octave_atlas(img: torch.Tensor, params: detect.DetectParams):
+    """The frame's ``octaves``, stacked into the ``pyramid_atlas``, and K1's
+    band of each: (octaves, atlas, [(row_off, h, w, border, r_cands)])."""
+    octs = octaves(img, params)
+    atlas, offs = describe.pyramid_atlas([xo for _, xo, _ in octs])
+    bands = [(off, *xo.shape, bo, _ROW_CANDS[min(o, len(_ROW_CANDS) - 1)])
+             for (o, xo, bo), off in zip(octs, offs)]
+    return octs, atlas, bands
+
+
 def select_candidates(img: torch.Tensor, params: detect.DetectParams,
                       use_kernels: bool = True):
     """One (H, W) frame -> its candidates and the describe kernel's input.
 
-    Per octave, K1 selects the per-row top-R DoH candidates with their
-    sub-pixel offsets; the octave images are stacked into the atlas (16
-    zero rows on top, each band zero-padded to the octave-0 width and
-    wrapped in ATLAS_GUARD zero rows).  Returns (rows, cols, scores) in
+    The octave images are stacked into the atlas (each band zero-padded to
+    the octave-0 width and wrapped in ATLAS_GUARD zero rows), and K1
+    selects every octave's per-row top-R DoH candidates with their
+    sub-pixel offsets from its bands in one call.  The describe kernel's
+    atlas has 16 more zero rows on top.  Returns (rows, cols, scores) in
     full-frame coordinates, row-major per octave (score <= 0 marks an empty
     slot), the atlas, and each candidate's 18x18 window start (r0, c0) in
     it.
     """
     spacing = 2.0 ** (1.0 / max(params.n_octave_layers, 1))
-    octs = []
-    for o, xo, bo in octaves(img, params):
-        r_c = _ROW_CANDS[min(o, len(_ROW_CANDS) - 1)]
-        sc, col, drs, dcs = kdoh.doh_select(
-            xo, r_cands=r_c, threshold=params.threshold,
-            n_scales=params.n_octave_layers, base_sigma=params.base_sigma,
-            border=bo, spacing=spacing, use_kernel=use_kernels)
-        octs.append((o, xo, sc, col, drs, dcs))
-
-    core, offs = describe.pyramid_atlas([xo for _, xo, *_ in octs])
+    octs, core, bands = octave_atlas(img, params)
+    offs = [b[0] for b in bands]
+    sel = kdoh.doh_select_octaves(
+        core, bands, threshold=params.threshold,
+        n_scales=params.n_octave_layers, base_sigma=params.base_sigma,
+        spacing=spacing, use_kernel=use_kernels)
     hc, w0 = core.shape
     atlas = F.pad(core, (0, 0, 16, 0))
 
     # ---- flatten candidates (row-major per octave)
     rows_l, cols_l, sc_l, r0_l, c0_l = [], [], [], [], []
-    for (o, xo, sc, col, drs, dcs), xoff in zip(octs, offs):
+    for (o, xo, _), (sc, col, drs, dcs), xoff in zip(octs, sel, offs):
         ho, r_c = sc.shape
         f = float(1 << o)
         r_int = torch.arange(ho, device=img.device,

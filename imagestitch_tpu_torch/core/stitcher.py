@@ -77,11 +77,7 @@ class Stitcher:
             raise NotImplementedError("a device mesh is not ported yet "
                                       "(ROADMAP Queue 1 item 22)")
         check_supported(cfg)
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"Stitcher(device={str(self.device)!r}): "
-                               f"torch.cuda.is_available() is False; pass "
-                               f"device='cpu' to run on the CPU")
+        self.device = compose_mod.resolve_device(device, "Stitcher")
         self.cfg = cfg
         self.checkpoint_dir = checkpoint_dir
         self._direction = cfg.direction
@@ -203,7 +199,8 @@ class Stitcher:
                 if host is not None:
                     return stream_out.compose_streamed(
                         host[start:end + 1], seg_offsets, cfg,
-                        frames_dev=self._to_device(seg_images))
+                        frames_dev=self._to_device(seg_images),
+                        device=self.device)
         return compose_mod.compose(self._to_device(seg_images), seg_offsets,
                                    cfg)
 

@@ -140,18 +140,21 @@ def patch_rects_host(canvas: np.ndarray, rects, rect_stream: np.ndarray
 
 def compose_streamed(frames_host: np.ndarray,
                      offsets: Sequence[Tuple[int, int]], cfg: StitchConfig,
-                     frames_dev: Optional[torch.Tensor] = None) -> np.ndarray:
+                     frames_dev: Optional[torch.Tensor] = None,
+                     device="cuda") -> np.ndarray:
     """Device-composed panorama, materialized on the host from a rect-only
     readback.
 
     ``frames_host``: (N, H, W[, 3]) uint8 decoded frames.  ``frames_dev``:
-    the same batch already on the device, if the caller has it; else the
-    composition runs where ``frames_host`` is (the CPU).  Bit-equal to
+    the same batch already on the device, if the caller has it; else
+    ``frames_host`` goes to ``device``, the card unless the caller passes
+    ``device="cpu"`` (``compose.compose``'s rule).  Bit-equal to
     ``compose.compose``."""
     h, w = frames_host.shape[1], frames_host.shape[2]
     placement, steps, _ = compose_mod.plan_compose(offsets, (h, w), cfg)
     src = frames_dev if frames_dev is not None else frames_host
-    pano_dev = compose_mod.compose(src, offsets, cfg, return_device=True)
+    pano_dev = compose_mod.compose(src, offsets, cfg, return_device=True,
+                                   device=device)
     rects = visible_rect_pieces(steps, (h, w))
     flat = _extract_rects_flat(pano_dev, rects)
     # the host paste replay touches only host memory: it runs while the

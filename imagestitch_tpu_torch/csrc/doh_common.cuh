@@ -1,46 +1,79 @@
-// Shared stage of the DoH kernels K1 (doh_select.cu) and K4
-// (doh_score_map.cu): the edge-clamped input tile, the separable Gaussian
-// -derivative correlations and the scale max of the determinant-of-Hessian
-// response, for one tile of kTR image rows x kTC columns plus a ring of one
-// row/column on each side (the 3x3 NMS ring and the sub-pixel neighbours).
+// Shared response stage of the DoH kernels K1 (doh_select.cu) and K4
+// (doh_score_map.cu): the separable Gaussian-derivative correlations and
+// the scale max of the determinant-of-Hessian response over one tile of
+// kTR image rows x tile_cols(halo) columns plus a ring of one row/column on
+// each side (the 3x3 NMS ring and the sub-pixel neighbours).
 //
-// Clamped loads are the edge padding of imagestitch_tpu/ops/pallas/doh.py
-// (:278-279 and :331-332), so the ring at image edges holds responses of the
-// edge-padded image, never -inf.  Products and sums use __fmul_rn/__fadd_rn
-// in the order of the plain PyTorch version (ops/kernels/doh.py
-// _response_ring), so the compiler cannot contract them into FMAs and the
-// kernels agree with it bit for bit.
+// Register-blocked, so that FP32 issue and not shared memory sets the pace:
+//  * vertical pass: thread t owns column t of the tile's kVW plane columns.
+//    It loads a chunk of kChunk + 2R image samples of its column into
+//    registers once (edge-clamped global loads, L1-cached: the clamp is the
+//    edge padding of imagestitch_tpu/ops/pallas/doh.py:278-279, :331-332)
+//    and every tap of the three vertical correlations reads them from
+//    there; the three planes go to shared memory;
+//  * horizontal pass: each thread owns kSeg consecutive outputs of one ring
+//    row (a warp covers a row), loads the kSeg + 2R plane values they need
+//    once per plane and runs the taps out of registers.  Plane columns are
+//    stored with one spare float every kSeg columns (pcol), so the 32 lanes
+//    of a warp, kSeg columns apart, read 32 different banks;
+//  * the scale max of the response stays in registers across scales and is
+//    written once, into the same shared memory (read by the epilogues).
+// Radii are template arguments (kMinRadius..kMaxRadius), so every tap loop
+// unrolls and the register windows are indexed at compile time.
+//
+// Products and sums use __fmul_rn/__fadd_rn in the order of the plain
+// PyTorch version (ops/kernels/doh.py _response_ring): per output, the
+// product with tap 0, then each further product added in tap order.  The
+// compiler cannot contract them into FMAs, so the kernels agree with it bit
+// for bit.  With the separate multiply and add, the FP32 issue rate is half
+// the card's FMA peak: that half is this stage's ceiling.
 #pragma once
 #include <cuda_runtime.h>
 
 namespace doh {
 
-constexpr int kTR = 8;                 // image rows per tile
-constexpr int kTC = 128;               // columns per tile
-constexpr int kThreads = kTR * 32;
+constexpr int kThreads = 256;          // threads per block
+constexpr int kVW = kThreads;          // vertical-pass columns per tile
+constexpr int kRR = 16;                // ring rows per tile
+constexpr int kTR = kRR - 2;           // image rows per tile
+constexpr int kMinBlocks = 3;          // blocks per SM (80 registers)
+constexpr int kChunk = 8;              // vertical rows per register block
+constexpr int kSeg = 8;                // horizontal outputs per thread item
+constexpr int kSegs = kVW / kSeg;      // items per ring row (one warp)
 constexpr int kMaxScales = 4;
+constexpr int kMinRadius = 2;
 constexpr int kMaxRadius = 10;
 constexpr int kMaxTaps = 2 * kMaxRadius + 1;
-constexpr int kRC = kTC + 2;           // response tile width (with the ring)
+constexpr int kTapFloats = kMaxScales * 3 * kMaxTaps;
+
+static_assert(kSegs == 32, "a warp covers one ring row");
+static_assert(kRR % kChunk == 0, "whole vertical chunks");
+
+// padded shared-memory column of plane column c
+__host__ __device__ constexpr int pcol(int c) { return c + c / kSeg; }
+// plane row stride: the horizontal pass reads up to column kVW + kSeg - 2
+constexpr int kPW = pcol(kVW + kSeg - 1) + 1;
+
+// output columns of a tile: the kVW plane columns less the ring and the
+// largest radius on each side
+__host__ __device__ constexpr int tile_cols(int halo) {
+  return kVW - 2 - 2 * halo;
+}
 
 struct DohParams {
   int n_scales;
+  int halo;                            // largest radius
   int radius[kMaxScales];
   float s4[kMaxScales];                // sigma^4 per scale
-  float g[kMaxScales][kMaxTaps];       // Gaussian
-  float dg[kMaxScales][kMaxTaps];      // first derivative
-  float ddg[kMaxScales][kMaxTaps];     // second derivative
+  float taps[kTapFloats];              // [scale][g, dg, ddg][tap]
 };
+
+// shared memory of the stage: the tap tables, then three planes of kRR x
+// kPW floats (the response ring reuses the first kRR x kPW of them)
+constexpr int kSmemFloats = kTapFloats + 3 * kRR * kPW;
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
-}
-
-// floats of shared memory the response stage needs, excluding the response
-// tile itself: the input tile and the three row-correlation planes
-__host__ __device__ inline int stage_floats(int halo) {
-  const int in_rows = kTR + 2 + 2 * halo, in_cols = kTC + 2 + 2 * halo;
-  return in_rows * in_cols + 3 * (kTR + 2) * in_cols;
 }
 
 // Fill the kernel parameters from the host tap tables; returns the halo
@@ -52,95 +85,198 @@ inline int fill_params(DohParams& p, int n_scales, const int* radii,
   p.n_scales = n_scales;
   int halo = 0;
   for (int s = 0; s < n_scales; ++s) {
-    if (radii[s] < 1 || radii[s] > kMaxRadius) return -1;
+    if (radii[s] < kMinRadius || radii[s] > kMaxRadius) return -1;
     p.radius[s] = radii[s];
     p.s4[s] = s4[s];
     halo = radii[s] > halo ? radii[s] : halo;
-    for (int t = 0; t < kMaxTaps; ++t) {
-      p.g[s][t] = taps[(s * 3 + 0) * kMaxTaps + t];
-      p.dg[s][t] = taps[(s * 3 + 1) * kMaxTaps + t];
-      p.ddg[s][t] = taps[(s * 3 + 2) * kMaxTaps + t];
-    }
   }
+  for (int e = 0; e < n_scales * 3 * kMaxTaps; ++e) p.taps[e] = taps[e];
+  p.halo = halo;
   return halo;
 }
 
-// Scale-max DoH response on image rows r0-1 .. r0+kTR and columns
-// c0-1 .. c0+kTC into s_resp ((kTR+2) x kRC, row-major).  ``stage`` holds
-// stage_floats(halo) floats.  Called by all kThreads threads of the block;
-// ends with __syncthreads().
-__device__ inline void response_tile(const float* __restrict__ img, int h,
-                                     int w, int r0, int c0, int halo,
-                                     const DohParams& p, float* stage,
-                                     float* s_resp) {
-  const int tid = threadIdx.x;
-  const int in_rows = kTR + 2 + 2 * halo;
-  const int in_cols = kTC + 2 + 2 * halo;
-  float* s_in = stage;                                 // in_rows x in_cols
-  float* s_l = s_in + in_rows * in_cols;               // 3 x (kTR+2) x in_cols
-
-  // stage image rows r0-1-halo.., cols c0-1-halo.. (edge-clamped)
-  for (int e = tid; e < in_rows * in_cols; e += kThreads) {
-    int i = e / in_cols, j = e - i * in_cols;
-    int gr = clampi(r0 - 1 - halo + i, 0, h - 1);
-    int gc = clampi(c0 - 1 - halo + j, 0, w - 1);
-    s_in[e] = img[(size_t)gr * w + gc];
-  }
-  __syncthreads();
-
-  for (int s = 0; s < p.n_scales; ++s) {
-    const int rs = p.radius[s], nt = 2 * rs + 1, off = halo - rs;
-    const int l_cols = kTC + 2 + 2 * rs;
-    // row correlations: lxx_r (g), lyy_r (ddg), lxy_r (dg)
-    for (int e = tid; e < (kTR + 2) * l_cols; e += kThreads) {
-      int i = e / l_cols, jj = e - i * l_cols;
-      const float* src = s_in + (i + off) * in_cols + jj + off;
-      float v = src[0];
-      float a = __fmul_rn(v, p.g[s][0]);
-      float b = __fmul_rn(v, p.ddg[s][0]);
-      float c = __fmul_rn(v, p.dg[s][0]);
-      for (int t = 1; t < nt; ++t) {
-        v = src[t * in_cols];
-        a = __fadd_rn(a, __fmul_rn(v, p.g[s][t]));
-        b = __fadd_rn(b, __fmul_rn(v, p.ddg[s][t]));
-        c = __fadd_rn(c, __fmul_rn(v, p.dg[s][t]));
+// Vertical correlations for ring rows r0-1 .. r0-1+kRR-1 at radius R:
+// plane 0 with g, plane 1 with ddg, plane 2 with dg.  Plane column t (this
+// thread's) is image column c0 - 1 - R + t, so that each scale's
+// horizontal taps start at plane column kSeg * seg.
+template <int R>
+__device__ __forceinline__ void vertical(const float* __restrict__ band,
+                                         int pitch, int h, int w, int r0,
+                                         int c0, const float* __restrict__ tp,
+                                         float* planes) {
+  constexpr int NT = 2 * R + 1, NX = kChunk + 2 * R;
+  const float* g = tp;
+  const float* dg = tp + kMaxTaps;
+  const float* ddg = tp + 2 * kMaxTaps;
+  const int gc = clampi(c0 - 1 - R + (int)threadIdx.x, 0, w - 1);
+  const int pc = pcol(threadIdx.x);
+#pragma unroll 1     // one copy of the chunk's code: the body is unrolled
+  for (int ch = 0; ch < kRR; ch += kChunk) {
+    float x[NX];
+#pragma unroll
+    for (int m = 0; m < NX; ++m)
+      x[m] = __ldg(band + (size_t)clampi(r0 - 1 - R + ch + m, 0, h - 1) *
+                              pitch + gc);
+    float a[kChunk], b[kChunk], c[kChunk];
+    {
+      const float g0 = g[0], dd0 = ddg[0], d0 = dg[0];
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) {
+        a[i] = __fmul_rn(x[i], g0);
+        b[i] = __fmul_rn(x[i], dd0);
+        c[i] = __fmul_rn(x[i], d0);
       }
-      s_l[(0 * (kTR + 2) + i) * in_cols + jj] = a;
-      s_l[(1 * (kTR + 2) + i) * in_cols + jj] = b;
-      s_l[(2 * (kTR + 2) + i) * in_cols + jj] = c;
     }
-    __syncthreads();
-    // column correlations -> DoH -> scale max
-    for (int e = tid; e < (kTR + 2) * kRC; e += kThreads) {
-      int i = e / kRC, j = e - i * kRC;
-      const float* la = s_l + (0 * (kTR + 2) + i) * in_cols + j;
-      const float* lb = s_l + (1 * (kTR + 2) + i) * in_cols + j;
-      const float* lc = s_l + (2 * (kTR + 2) + i) * in_cols + j;
-      float xx = __fmul_rn(la[0], p.ddg[s][0]);
-      float yy = __fmul_rn(lb[0], p.g[s][0]);
-      float xy = __fmul_rn(lc[0], p.dg[s][0]);
-      for (int t = 1; t < nt; ++t) {
-        xx = __fadd_rn(xx, __fmul_rn(la[t], p.ddg[s][t]));
-        yy = __fadd_rn(yy, __fmul_rn(lb[t], p.g[s][t]));
-        xy = __fadd_rn(xy, __fmul_rn(lc[t], p.dg[s][t]));
+#pragma unroll
+    for (int t = 1; t < NT; ++t) {
+      const float gt = g[t], ddt = ddg[t], dt = dg[t];
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) {
+        a[i] = __fadd_rn(a[i], __fmul_rn(x[i + t], gt));
+        b[i] = __fadd_rn(b[i], __fmul_rn(x[i + t], ddt));
+        c[i] = __fadd_rn(c[i], __fmul_rn(x[i + t], dt));
       }
-      float r = __fmul_rn(p.s4[s],
-                          __fsub_rn(__fmul_rn(xx, yy), __fmul_rn(xy, xy)));
-      s_resp[e] = (s == 0) ? r : fmaxf(s_resp[e], r);
     }
-    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kChunk; ++i) {
+      planes[(0 * kRR + ch + i) * kPW + pc] = a[i];
+      planes[(1 * kRR + ch + i) * kPW + pc] = b[i];
+      planes[(2 * kRR + ch + i) * kPW + pc] = c[i];
+    }
   }
 }
 
-// NMS score of the tile pixel whose response sits at q = s_resp + (i+1)*kRC
-// + (j+1): the response where it is >= its 8 neighbours, inside the border
-// and above the threshold, else 0.
-__device__ __forceinline__ float nms_score(const float* q, int gr, int gc,
-                                           int h, int w, int border,
-                                           float threshold) {
-  float cen = q[0];
-  float m = fmaxf(fmaxf(fmaxf(q[-kRC - 1], q[-kRC]), fmaxf(q[-kRC + 1], q[-1])),
-                  fmaxf(fmaxf(q[1], q[kRC - 1]), fmaxf(q[kRC], q[kRC + 1])));
+// One plane row's horizontal correlation at radius R for the kSeg outputs
+// whose tap 0 sits at plane column kSeg * seg (``seg_row`` = row + pcol(kSeg
+// * seg), so every load has a constant offset).
+template <int R>
+__device__ __forceinline__ void horiz_row(const float* seg_row,
+                                          const float* __restrict__ k,
+                                          float (&out)[kSeg]) {
+  constexpr int NT = 2 * R + 1, NX = kSeg + 2 * R;
+  float y[NX];
+#pragma unroll
+  for (int m = 0; m < NX; ++m) y[m] = seg_row[pcol(m)];
+  const float k0 = k[0];
+#pragma unroll
+  for (int j = 0; j < kSeg; ++j) out[j] = __fmul_rn(y[j], k0);
+#pragma unroll
+  for (int t = 1; t < NT; ++t) {
+    const float kt = k[t];
+#pragma unroll
+    for (int j = 0; j < kSeg; ++j)
+      out[j] = __fadd_rn(out[j], __fmul_rn(y[j + t], kt));
+  }
+}
+
+// Horizontal correlations, determinant and scale max of one item: ring row
+// ``i``, outputs kSeg * seg .. kSeg * seg + kSeg - 1.
+template <int R>
+__device__ __forceinline__ void horizontal(const float* planes, int i,
+                                           int seg,
+                                           const float* __restrict__ tp,
+                                           float s4, bool first,
+                                           float (&rmax)[kSeg]) {
+  const float* base = planes + i * kPW + pcol(seg * kSeg);
+  const float* g = tp;
+  const float* dg = tp + kMaxTaps;
+  const float* ddg = tp + 2 * kMaxTaps;
+  float xx[kSeg], v[kSeg];
+  horiz_row<R>(base, ddg, xx);
+  horiz_row<R>(base + kRR * kPW, g, v);
+#pragma unroll
+  for (int j = 0; j < kSeg; ++j) xx[j] = __fmul_rn(xx[j], v[j]);  // xx*yy
+  horiz_row<R>(base + 2 * kRR * kPW, dg, v);
+#pragma unroll
+  for (int j = 0; j < kSeg; ++j) {
+    float r = __fmul_rn(s4, __fsub_rn(xx[j], __fmul_rn(v[j], v[j])));
+    rmax[j] = first ? r : fmaxf(rmax[j], r);
+  }
+}
+
+#define DOH_RADIUS_CASES(CALL) \
+  switch (radius) {            \
+    case 2: CALL(2); break;    \
+    case 3: CALL(3); break;    \
+    case 4: CALL(4); break;    \
+    case 5: CALL(5); break;    \
+    case 6: CALL(6); break;    \
+    case 7: CALL(7); break;    \
+    case 8: CALL(8); break;    \
+    case 9: CALL(9); break;    \
+    default: CALL(10); break;  \
+  }
+
+// Scale-max DoH response on ring rows r0-1 .. r0+kTR and ring columns
+// c0-1 .. c0+tile_cols(halo) of the (h, w) image at ``band`` (row stride
+// ``pitch``), into ``smem`` (kSmemFloats floats).  Read it back with
+// resp_at(smem, ri, rj), ring row ri and ring column rj counted from the
+// tile's ring origin.  Called by all kThreads threads; ends with
+// __syncthreads().
+__device__ inline void response_tile(const float* __restrict__ band,
+                                     int pitch, int h, int w, int r0, int c0,
+                                     const DohParams& p, float* smem) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int halo = p.halo;
+  float* s_taps = smem;
+  float* planes = smem + kTapFloats;
+  for (int e = tid; e < p.n_scales * 3 * kMaxTaps; e += kThreads)
+    s_taps[e] = p.taps[e];
+  __syncthreads();
+
+  // horizontal items: ring rows warp and warp + 8, outputs from kSeg * lane;
+  // outputs past the ring (tile_cols + 2) are not computed
+  const bool live = lane * kSeg < tile_cols(halo) + 2;
+  float rmax[2][kSeg];
+
+  for (int s = 0; s < p.n_scales; ++s) {
+    const int radius = p.radius[s];
+    const float* tp = s_taps + s * 3 * kMaxTaps;
+#define DOH_VERTICAL(R) vertical<R>(band, pitch, h, w, r0, c0, tp, planes)
+    DOH_RADIUS_CASES(DOH_VERTICAL)
+#undef DOH_VERTICAL
+    __syncthreads();
+    if (live) {
+      const float s4 = p.s4[s];
+#define DOH_HORIZONTAL(R)                                                 \
+  horizontal<R>(planes, warp, lane, tp, s4, s == 0, rmax[0]);             \
+  horizontal<R>(planes, warp + 8, lane, tp, s4, s == 0, rmax[1])
+      DOH_RADIUS_CASES(DOH_HORIZONTAL)
+#undef DOH_HORIZONTAL
+    }
+    __syncthreads();
+  }
+  if (live) {
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+#pragma unroll
+      for (int j = 0; j < kSeg; ++j)
+        planes[(warp + 8 * u) * kPW + pcol(lane * kSeg + j)] = rmax[u][j];
+  }
+  __syncthreads();
+}
+
+static_assert(kRR == 2 * (kThreads / 32), "two ring rows per warp");
+
+// the response at ring row ri, ring column rj of the last response_tile
+__device__ __forceinline__ float resp_at(const float* smem, int ri, int rj) {
+  return smem[kTapFloats + ri * kPW + pcol(rj)];
+}
+
+// NMS score of tile pixel (i, j), image pixel (gr, gc): the response where
+// it is >= its 8 neighbours, inside the border and above the threshold,
+// else 0.
+__device__ __forceinline__ float nms_score(const float* smem, int i, int j,
+                                           int gr, int gc, int h, int w,
+                                           int border, float threshold) {
+  const float* q = smem + kTapFloats;
+  const int c0 = pcol(j), c1 = pcol(j + 1), c2 = pcol(j + 2);
+  const float* up = q + i * kPW;
+  const float* mid = up + kPW;
+  const float* dn = mid + kPW;
+  float cen = mid[c1];
+  float m = fmaxf(fmaxf(fmaxf(up[c0], up[c1]), fmaxf(up[c2], mid[c0])),
+                  fmaxf(fmaxf(mid[c2], dn[c0]), fmaxf(dn[c1], dn[c2])));
   bool inside = gr >= border && gr < h - border &&
                 gc >= border && gc < w - border;
   return (cen >= m && inside && cen > threshold) ? cen : 0.0f;

@@ -1,35 +1,34 @@
 // K1: fused multi-scale determinant-of-Hessian + 3x3 NMS + sub-pixel +
-// per-row top-R candidate selection.
+// per-row top-R candidate selection, for all octaves of a frame in one
+// launch.
 //
 // Replaces imagestitch_tpu/ops/pallas/doh.py::doh_select (the Pallas call at
 // doh.py:285, kernel body _make_select_kernel at doh.py:143).
 //
-// What bounds it on an H100: not device memory.  A 5 MP octave-0 frame is
-// read once (20 MB) and only H x R candidates are written, while each pixel
-// costs 6 separable correlations of 9-13 taps per scale (~400 flops).  Every
-// tap is a shared-memory read plus a separate multiply and add, and one
-// block per 8 image rows leaves few blocks per SM, so shared-memory reads,
-// instruction issue and occupancy set its speed, far below the FP32 peak.
-// The TPU version turned the correlations into banded (Toeplitz) MXU
-// matmuls over 128-lane column tiles; Hopper has no layout rule that needs
-// this, so here they are direct FP32 correlations out of shared memory.
+// What bounds it on an H100: FP32 instruction issue.  A 1936x2584 frame's
+// four octaves are read once (26 MB, 8 us of HBM time) and only H x R
+// candidates are written, while each pixel costs six separable correlations
+// of 9-13 taps per scale (402 operations, chip_smoke.py doh_operations).
+// The kernel must stay bit-equal to the plain version, so every multiply and
+// add is its own rounded instruction (no FMA): the ceiling is half the
+// card's FP32 FMA rate, about 0.08 ms for the four octaves.
 //
 // Design:
-//  * one block of 8 warps owns 8 image rows over the full width, walking
-//    the width in 128-column chunks (a 2584-wide row of 8 + halo rows would
-//    not fit in shared memory);
-//  * per chunk the block runs the response stage shared with K4
-//    (doh_common.cuh): it stages the edge-clamped input tile once (clamped
-//    indices are the edge padding of doh.py:278-279), runs the row
-//    correlations into shared memory, then the column correlations, and
-//    keeps the scale max of the response on rows/cols -1..+1 beyond the
-//    chunk, so the NMS ring and the sub-pixel neighbours read responses of
-//    the edge-padded image exactly as the Pallas kernel does;
-//  * each warp owns one row: it takes the chunk's top-R NMS survivors by
-//    (score desc, column asc) with warp shuffles, computes their sub-pixel
-//    offsets from the raw response, and merges them into the row's running
-//    top-R (earlier chunks have lower columns, so ties keep the running
-//    entry: the first-lane tie-break of the Pallas kernel).
+//  * one launch covers the frame's octaves, the bands of the pyramid atlas
+//    (one base pointer, a row offset, h, w, border and R per octave); the
+//    1-D grid walks a tile table over all octaves, largest first, so the
+//    small octaves fill the SMs the large one leaves idle at its tail;
+//  * each block owns one tile of kTR (14) rows x tile_cols(halo) columns
+//    (242 at radii 4-6) and runs the register-blocked response stage of
+//    doh_common.cuh (FP32 issue, not shared memory, sets its pace; the
+//    ring and halo cost ~1.15x the counted operations);
+//  * per tile row, a warp takes the tile's top-R NMS survivors by (score
+//    desc, column asc) with shuffles, computes their sub-pixel offsets from
+//    the raw response, and writes them to a scratch list per (row, tile);
+//  * a second, small kernel (a warp per row, a lane per tile list) merges
+//    each row's tile lists into its global top-R, taking the next best by
+//    (score desc, column asc) among all lists: ties keep the lower column,
+//    the first-lane tie-break of the Pallas kernel.
 // Products and sums use __fmul_rn/__fadd_rn in the order of the plain
 // PyTorch version (ops/kernels/doh.py::doh_select_plain), so the compiler
 // cannot contract them into FMAs and the two agree bit for bit.
@@ -41,12 +40,24 @@
 namespace {
 
 using doh::DohParams;
-using doh::kRC;
-using doh::kTC;
 using doh::kThreads;
 using doh::kTR;
 constexpr int kMaxCands = 8;
+constexpr int kMaxOctaves = 8;
+constexpr int kLaneCols = (doh::kVW + 31) / 32;   // tile columns per lane
 constexpr unsigned kFull = 0xffffffffu;
+
+struct Octaves {
+  int n;
+  int row_off[kMaxOctaves];     // first atlas row of the band
+  int h[kMaxOctaves], w[kMaxOctaves];
+  int border[kMaxOctaves], r_cands[kMaxOctaves];
+  int col_tiles[kMaxOctaves];
+  int tile0[kMaxOctaves + 1];   // first block of each octave
+  int row0[kMaxOctaves + 1];    // first merged row of each octave
+  int scratch0[kMaxOctaves];    // first scratch entry of each octave
+  int out0[kMaxOctaves];        // first output slot of each octave
+};
 
 // strict (score desc, column asc) order
 __device__ __forceinline__ bool better(float sa, int ca, float sb, int cb) {
@@ -60,119 +71,179 @@ __device__ __forceinline__ float axis_off(float m, float p, float c) {
   return fminf(fmaxf(off, -0.5f), 0.5f);
 }
 
-__global__ void __launch_bounds__(kThreads)
-doh_select_kernel(const float* __restrict__ img, int h, int w, int r_cands,
-                  float threshold, int border, int halo, DohParams p,
-                  float* __restrict__ out_sc, int* __restrict__ out_col,
-                  float* __restrict__ out_dr, float* __restrict__ out_dc) {
+// scratch entry: (score, column bits, dr, dc); score 0 marks an empty slot
+__global__ void __launch_bounds__(kThreads, doh::kMinBlocks)
+doh_select_tiles(const float* __restrict__ atlas, int pitch, float threshold,
+                 const __grid_constant__ DohParams p,
+                 const __grid_constant__ Octaves t,
+                 float4* __restrict__ scratch) {
   extern __shared__ float smem[];
-  float* stage = smem;                                 // doh::stage_floats
-  float* s_resp = stage + doh::stage_floats(halo);     // (kTR+2) x kRC
-  float* s_sc = s_resp + (kTR + 2) * kRC;              // kTR x kTC
+  int o = 0;
+  while (o + 1 < t.n && (int)blockIdx.x >= t.tile0[o + 1]) ++o;
+  const int nct = t.col_tiles[o];
+  const int tb = blockIdx.x - t.tile0[o];
+  const int rt = tb / nct, ct = tb - rt * nct;
+  const int h = t.h[o], w = t.w[o];
+  const int tc = doh::tile_cols(p.halo);
+  const int r0 = rt * kTR, c0 = ct * tc;
+  doh::response_tile(atlas + (size_t)t.row_off[o] * pitch, pitch, h, w, r0,
+                     c0, p, smem);
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int r0 = blockIdx.x * kTR;
-  const int row = r0 + warp;
-
-  // this warp's running top-R for its row (identical in every lane)
-  float best_s[kMaxCands], best_dr[kMaxCands], best_dc[kMaxCands];
-  int best_c[kMaxCands];
-  int n_best = 0;
-
-  for (int c0 = 0; c0 < w; c0 += kTC) {
-    doh::response_tile(img, h, w, r0, c0, halo, p, stage, s_resp);
-
-    // NMS (center >= its 8 neighbours), border, threshold
-    for (int e = tid; e < kTR * kTC; e += kThreads) {
-      int i = e / kTC, j = e - i * kTC;
-      int gr = r0 + i, gc = c0 + j;
-      float sc = 0.0f;
-      if (gr < h && gc < w)
-        sc = doh::nms_score(s_resp + (i + 1) * kRC + (j + 1), gr, gc, h, w,
-                            border, threshold);
-      s_sc[e] = sc;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rc = t.r_cands[o], border = t.border[o];
+  for (int i = warp; i < kTR; i += kThreads / 32) {
+    const int gr = r0 + i;
+    if (gr >= h) break;                                  // warp-uniform
+    float sc[kLaneCols];
+#pragma unroll
+    for (int q = 0; q < kLaneCols; ++q) {
+      const int j = lane + 32 * q, gc = c0 + j;
+      sc[q] = (j < tc && gc < w)
+                  ? doh::nms_score(smem, i, j, gr, gc, h, w, border, threshold)
+                  : 0.0f;
     }
-    __syncthreads();
-
-    if (row < h) {
-      float* srow = s_sc + warp * kTC;
-      float cs[kMaxCands], cdr[kMaxCands], cdc[kMaxCands];
-      int cc[kMaxCands];
-      int nc = 0;
-      for (int t = 0; t < r_cands; ++t) {
-        float bs = 0.0f;
-        int bc = INT_MAX;
-        for (int j = lane; j < kTC; j += 32) {
-          float v = srow[j];
-          if (v > 0.0f && better(v, j, bs, bc)) { bs = v; bc = j; }
+    float4* out = scratch + t.scratch0[o] + ((size_t)gr * nct + ct) * rc;
+    for (int k = 0; k < rc; ++k) {
+      float bs = 0.0f;
+      int bj = INT_MAX;
+#pragma unroll
+      for (int q = 0; q < kLaneCols; ++q)
+        if (sc[q] > 0.0f && better(sc[q], lane + 32 * q, bs, bj)) {
+          bs = sc[q];
+          bj = lane + 32 * q;
         }
-        for (int o = 16; o > 0; o >>= 1) {
-          float os = __shfl_xor_sync(kFull, bs, o);
-          int oc = __shfl_xor_sync(kFull, bc, o);
-          if (better(os, oc, bs, bc)) { bs = os; bc = oc; }
-        }
-        if (!(bs > 0.0f)) break;                       // warp-uniform
-        const float* q = s_resp + (warp + 1) * kRC + (bc + 1);
-        cs[nc] = bs;
-        cc[nc] = c0 + bc;
-        cdr[nc] = axis_off(q[-kRC], q[kRC], q[0]);
-        cdc[nc] = axis_off(q[-1], q[1], q[0]);
-        ++nc;
-        if (lane == (bc & 31)) srow[bc] = 0.0f;        // the owning lane
-        __syncwarp();
+      for (int off = 16; off > 0; off >>= 1) {
+        float os = __shfl_xor_sync(kFull, bs, off);
+        int oj = __shfl_xor_sync(kFull, bj, off);
+        if (better(os, oj, bs, bj)) { bs = os; bj = oj; }
       }
-      // merge running (lower columns) and chunk lists, keep the top r_cands
-      float ns[kMaxCands], ndr[kMaxCands], ndc[kMaxCands];
-      int ncol[kMaxCands];
-      int a = 0, b = 0, n = 0;
-      while (n < r_cands && (a < n_best || b < nc)) {
-        bool take_a = (b >= nc) || (a < n_best && best_s[a] >= cs[b]);
-        if (take_a) {
-          ns[n] = best_s[a]; ncol[n] = best_c[a];
-          ndr[n] = best_dr[a]; ndc[n] = best_dc[a]; ++a;
-        } else {
-          ns[n] = cs[b]; ncol[n] = cc[b]; ndr[n] = cdr[b]; ndc[n] = cdc[b]; ++b;
-        }
-        ++n;
+      if (!(bs > 0.0f)) {                                // warp-uniform
+        if (lane == 0) out[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        break;
       }
-      for (int k = 0; k < n; ++k) {
-        best_s[k] = ns[k]; best_c[k] = ncol[k];
-        best_dr[k] = ndr[k]; best_dc[k] = ndc[k];
+      if (lane == 0) {
+        const float cen = doh::resp_at(smem, i + 1, bj + 1);
+        out[k] = make_float4(
+            bs, __int_as_float(c0 + bj),
+            axis_off(doh::resp_at(smem, i, bj + 1),
+                     doh::resp_at(smem, i + 2, bj + 1), cen),
+            axis_off(doh::resp_at(smem, i + 1, bj),
+                     doh::resp_at(smem, i + 1, bj + 2), cen));
       }
-      n_best = n;
+#pragma unroll
+      for (int q = 0; q < kLaneCols; ++q)
+        if (lane + 32 * q == bj) sc[q] = 0.0f;           // the owning lane
     }
-    __syncthreads();                                   // smem reused next chunk
   }
+}
 
-  if (row < h && lane == 0) {
-    for (int k = 0; k < r_cands; ++k) {
-      size_t o = (size_t)row * r_cands + k;
-      bool live = k < n_best;
-      out_sc[o] = live ? best_s[k] : 0.0f;
-      out_col[o] = live ? best_c[k] : 0;
-      out_dr[o] = live ? best_dr[k] : 0.0f;
-      out_dc[o] = live ? best_dc[k] : 0.0f;
+// One warp per row of every octave: the row's top-R over its tile lists.
+// The k-th best is the best entry strictly after the (k-1)-th in the
+// (score desc, column asc) order.  Each lane takes the tile lists lane,
+// lane + 32, ...: a list is sorted, so its candidate is its first entry
+// after the (k-1)-th, and its scan stops at that entry or an empty one.
+__global__ void __launch_bounds__(kThreads)
+doh_select_merge(const __grid_constant__ Octaves t,
+                 const float4* __restrict__ scratch,
+                 float* __restrict__ out_sc, int* __restrict__ out_col,
+                 float* __restrict__ out_dr, float* __restrict__ out_dc) {
+  const int g = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (g >= t.row0[t.n]) return;                          // warp-uniform
+  int o = 0;
+  while (o + 1 < t.n && g >= t.row0[o + 1]) ++o;
+  const int gr = g - t.row0[o], rc = t.r_cands[o], nct = t.col_tiles[o];
+  const float4* lists = scratch + t.scratch0[o] + (size_t)gr * nct * rc;
+  const size_t o0 = (size_t)t.out0[o] + (size_t)gr * rc;
+  float ps = __int_as_float(0x7f800000);                // +inf
+  int pc = -1;
+  for (int k = 0; k < rc; ++k) {
+    float bs = 0.0f, bdr = 0.0f, bdc = 0.0f;
+    int bc = INT_MAX;
+    for (int ct = lane; ct < nct; ct += 32) {
+      for (int m = 0; m < rc; ++m) {
+        const float4 e = lists[ct * rc + m];
+        if (!(e.x > 0.0f)) break;
+        const int c = __float_as_int(e.y);
+        if (!better(ps, pc, e.x, c)) continue;           // taken already
+        if (better(e.x, c, bs, bc)) { bs = e.x; bc = c; bdr = e.z; bdc = e.w; }
+        break;
+      }
     }
+    for (int off = 16; off > 0; off >>= 1) {
+      const float os = __shfl_xor_sync(kFull, bs, off);
+      const int oc = __shfl_xor_sync(kFull, bc, off);
+      const float odr = __shfl_xor_sync(kFull, bdr, off);
+      const float odc = __shfl_xor_sync(kFull, bdc, off);
+      if (better(os, oc, bs, bc)) { bs = os; bc = oc; bdr = odr; bdc = odc; }
+    }
+    const bool live = bs > 0.0f;                         // warp-uniform
+    if (lane == 0) {
+      out_sc[o0 + k] = live ? bs : 0.0f;
+      out_col[o0 + k] = live ? bc : 0;
+      out_dr[o0 + k] = live ? bdr : 0.0f;
+      out_dc[o0 + k] = live ? bdc : 0.0f;
+    }
+    if (live) { ps = bs; pc = bc; } else { ps = 0.0f; pc = INT_MAX; }
   }
 }
 
 }  // namespace
 
-extern "C" int doh_select_launch(const float* img, int h, int w, int r_cands,
-                                 float threshold, int border, int n_scales,
-                                 const int* radii, const float* s4,
-                                 const float* taps, float* sc, int* col,
-                                 float* dr, float* dc, void* stream) {
+// bands: n_oct x (row_off, h, w, border, r_cands) in the atlas of row
+// stride ``pitch``; outputs: per octave h x r_cands slots, octave after
+// octave; scratch: ``scratch_entries`` float4 (the wrapper sizes it as
+// sum h * ceil(w / tile_cols(halo)) * r_cands).
+extern "C" int doh_select_launch(const float* atlas, int pitch, int n_oct,
+                                 const int* bands, float threshold,
+                                 int n_scales, const int* radii,
+                                 const float* s4, const float* taps,
+                                 float* sc, int* col, float* dr, float* dc,
+                                 float* scratch, int scratch_entries,
+                                 void* stream) {
   DohParams p;
-  int halo = doh::fill_params(p, n_scales, radii, s4, taps);
-  if (h < 1 || w < 1 || halo < 0 || r_cands < 1 || r_cands > kMaxCands)
+  const int halo = doh::fill_params(p, n_scales, radii, s4, taps);
+  if (halo < 0 || n_oct < 1 || n_oct > kMaxOctaves)
     return (int)cudaErrorInvalidValue;
-  size_t smem = sizeof(float) * ((size_t)doh::stage_floats(halo) +
-                                 (kTR + 2) * kRC + kTR * kTC);
-  cudaError_t e = doh::allow_smem(doh_select_kernel, smem);
+  const int tc = doh::tile_cols(halo);
+  Octaves t{};
+  t.n = n_oct;
+  long long tiles = 0, rows = 0, entries = 0, slots = 0;
+  for (int o = 0; o < n_oct; ++o) {
+    const int* b = bands + 5 * o;
+    const int h = b[1], w = b[2], rc = b[4];
+    if (b[0] < 0 || h < 1 || w < 1 || w > pitch || rc < 1 || rc > kMaxCands)
+      return (int)cudaErrorInvalidValue;
+    t.row_off[o] = b[0];
+    t.h[o] = h;
+    t.w[o] = w;
+    t.border[o] = b[3];
+    t.r_cands[o] = rc;
+    t.col_tiles[o] = (w + tc - 1) / tc;
+    t.tile0[o] = (int)tiles;
+    t.row0[o] = (int)rows;
+    t.scratch0[o] = (int)entries;
+    t.out0[o] = (int)slots;
+    tiles += (long long)((h + kTR - 1) / kTR) * t.col_tiles[o];
+    rows += h;
+    entries += (long long)h * t.col_tiles[o] * rc;
+    slots += (long long)h * rc;
+  }
+  t.tile0[n_oct] = (int)tiles;
+  t.row0[n_oct] = (int)rows;
+  if (entries != scratch_entries || tiles > INT_MAX)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * doh::kSmemFloats;
+  cudaError_t e = doh::allow_smem(doh_select_tiles, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((h + kTR - 1) / kTR);
-  doh_select_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      img, h, w, r_cands, threshold, border, halo, p, sc, col, dr, dc);
+  cudaStream_t s = (cudaStream_t)stream;
+  doh_select_tiles<<<(unsigned)tiles, kThreads, smem, s>>>(
+      atlas, pitch, threshold, p, t, (float4*)scratch);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int rows_per_block = kThreads / 32;
+  doh_select_merge<<<(unsigned)((rows + rows_per_block - 1) / rows_per_block),
+                     kThreads, 0, s>>>(
+      t, (const float4*)scratch, sc, col, dr, dc);
   return (int)cudaGetLastError();
 }

@@ -51,6 +51,22 @@ def window_weight() -> np.ndarray:
     return _gauss_weight(_S, _S / 2.0) * _S * _S
 
 
+_WEIGHT_TABLES = {}
+
+
+def weight_table(device) -> torch.Tensor:
+    """``window_weight()`` as an (S, S) float32 tensor on ``device``, built
+    and copied there once per device; later calls make no copy."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    table = _WEIGHT_TABLES.get(device)
+    if table is None:
+        table = torch.from_numpy(window_weight()).to(device)
+        _WEIGHT_TABLES[device] = table
+    return table
+
+
 def _gather_windows(image: torch.Tensor, r0: torch.Tensor, c0: torch.Tensor,
                     size: int) -> torch.Tensor:
     """(K, size, size) windows at integer starts, clamped so each window
@@ -230,7 +246,7 @@ def _oriented_patch_grads(image: torch.Tensor, rows: torch.Tensor,
 
 def describe_windows(q: torch.Tensor, extended: bool) -> torch.Tensor:
     """(K, 18, 18) sample windows -> (K, 64|128) upright SURF."""
-    gw = torch.from_numpy(window_weight()).to(q.device)
+    gw = weight_table(q.device)
     gx, gy = _grads_from_samples(q)
     return _surf_from_grads(gx * gw, gy * gw, extended)
 
@@ -245,7 +261,7 @@ def describe_batch(images: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
             f"Queue 1 item 17)")
     x = images.to(torch.float32)
     ext = params.family == "surf-extended"
-    gw = torch.from_numpy(window_weight()).to(x.device)
+    gw = weight_table(x.device)
     out = []
     for p in range(x.shape[0]):
         if params.upright:
@@ -280,7 +296,9 @@ def describe_from_pyramid(octave_images: Sequence[torch.Tensor],
     """Describe keypoints spread across octave images with ONE batched call
     over the ``pyramid_atlas``."""
     atlas, offsets = pyramid_atlas(octave_images)
-    band_off = torch.tensor(offsets, dtype=torch.float32,
-                            device=atlas.device)[octave_ids.long()]
+    offs = torch.tensor(offsets, dtype=torch.float32)
+    if atlas.is_cuda:                    # from pinned memory: no host wait
+        offs = offs.pin_memory().to(atlas.device, non_blocking=True)
+    band_off = offs[octave_ids.long()]
     return describe_batch(atlas[None], (r_loc + band_off)[None], c_loc[None],
                           params)[0]

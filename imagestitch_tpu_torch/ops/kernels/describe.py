@@ -4,13 +4,15 @@ Port of ``imagestitch_tpu/ops/pallas/describe.py::describe_atlas``.  The CUDA
 kernel is ``csrc/describe.cu``; ``describe_atlas_plain`` is the same function
 in plain PyTorch.  Inputs are the atlas as the pooled path builds it and the
 per-keypoint window starts (r0, c0) in atlas coordinates; each descriptor is
-taken from the 18x18 window at (r0, c0), clamped inside the atlas.
+taken from the 18x18 window at (r0, c0), clamped inside the atlas.  The
+wrapper makes no host-to-device copy per call: the Gaussian window table
+is built once per device (``features.describe.weight_table``).
 """
 from __future__ import annotations
 
 import torch
 
-from ..features.describe import _gather_windows, describe_windows, window_weight
+from ..features.describe import _gather_windows, describe_windows, weight_table
 
 #: launches of the CUDA kernel since the counter was last set to 0
 LAUNCHES = 0
@@ -31,9 +33,11 @@ def _launch(atlas, r0, c0, extended):
     global LAUNCHES
     ah, aw = atlas.shape
     k = r0.shape[0]
-    gw = torch.from_numpy(window_weight().reshape(-1)).to(atlas.device)
     out = torch.empty((k, 128 if extended else 64), dtype=torch.float32,
                       device=atlas.device)
+    if k == 0:
+        return out                       # nothing to launch
+    gw = weight_table(atlas.device).reshape(-1)
     lib = _build.library()
     err = lib.describe_launch(
         atlas.data_ptr(), ah, aw, r0.data_ptr(), c0.data_ptr(), k,

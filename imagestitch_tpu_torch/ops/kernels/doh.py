@@ -8,6 +8,9 @@ response stage ``csrc/doh_common.cuh``.  ``doh_select_plain`` and
 ``doh_score_map_plain`` are the same functions in plain PyTorch.  Each
 wrapper launches its kernel for a CUDA tensor (or the plain version when
 ``use_kernel`` is False) and takes the plain version for a CPU tensor.
+K1's wrapper, ``doh_select_octaves``, takes all octaves of a frame as
+bands of the pyramid atlas and covers them in one call (a tile kernel and
+a merge kernel); ``doh_select`` is its one-octave case.
 
 Semantics kept from the Pallas kernels:
   * the image is edge-padded; the response is evaluated on rows -1..H and
@@ -20,8 +23,9 @@ Semantics kept from the Pallas kernels:
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Tuple
+from typing import List, Tuple
 
 import numpy as np
 import torch
@@ -29,13 +33,15 @@ import torch
 from ..features.detect import (_corr_cols, _corr_rows, _edge_pad,
                                _gauss_kernels, axis_offset)
 
-#: launches of the K1 kernel since the counter was last set to 0
+#: calls of the K1 kernel (one per frame) since the counter was last set to 0
 LAUNCHES = 0
 #: launches of the K4 kernel since the counter was last set to 0
 SCORE_MAP_LAUNCHES = 0
 MAX_SCALES = 4      # csrc/doh_common.cuh kMaxScales
 MAX_RADIUS = 10     # csrc/doh_common.cuh kMaxRadius
 MAX_CANDS = 8       # csrc/doh_select.cu kMaxCands
+MAX_OCTAVES = 8     # csrc/doh_select.cu kMaxOctaves
+TILE_VCOLS = 256    # csrc/doh_common.cuh kVW
 
 
 def _scale_taps(base_sigma: float, n_scales: int, spacing: float = 1.6):
@@ -122,48 +128,108 @@ def doh_select_plain(image: torch.Tensor, r_cands: int = 4,
             torch.stack(dcs, 1))
 
 
-def _tap_tables(n_scales: int, base_sigma: float, spacing: float, name: str):
+@functools.lru_cache(maxsize=None)
+def _tap_tables(n_scales: int, base_sigma: float, spacing: float):
     """(radii, sigma^4, taps) numpy tables in the layout of
-    ``doh::fill_params`` (csrc/doh_common.cuh)."""
+    ``doh::fill_params`` (csrc/doh_common.cuh), built once per
+    (n_scales, base_sigma, spacing) and read-only."""
     if not 1 <= n_scales <= MAX_SCALES:
-        raise ValueError(f"{name} kernel: n_scales={n_scales} not in "
+        raise ValueError(f"DoH kernel: n_scales={n_scales} not in "
                          f"[1, {MAX_SCALES}]")
     taps = _scale_taps(base_sigma, n_scales, spacing)
     radii = np.asarray([t[3] for t in taps], np.int32)
     if radii.max() > MAX_RADIUS:
-        raise ValueError(f"{name} kernel: tap radius {radii.max()} > "
+        raise ValueError(f"DoH kernel: tap radius {radii.max()} > "
                          f"{MAX_RADIUS}")
     s4 = np.asarray([t[4] ** 4 for t in taps], np.float32)
     table = np.zeros((n_scales, 3, 2 * MAX_RADIUS + 1), np.float32)
     for s, (g, dg, ddg, radius, _) in enumerate(taps):
         for k, arr in enumerate((g, dg, ddg)):
             table[s, k, :2 * radius + 1] = arr
+    for a in (radii, s4, table):
+        a.setflags(write=False)
     return radii, s4, table
 
 
-def _launch(x: torch.Tensor, r_cands: int, threshold: float, n_scales: int,
-            base_sigma: float, border: int, spacing: float):
+def tile_cols(halo: int) -> int:
+    """Output columns of a DoH tile (csrc/doh_common.cuh ``tile_cols``)."""
+    return TILE_VCOLS - 2 - 2 * halo
+
+
+def _check_bands(atlas: torch.Tensor, bands):
+    if atlas.dim() != 2:
+        raise ValueError(f"doh_select expects a 2-D atlas, got "
+                         f"{tuple(atlas.shape)}")
+    if not 1 <= len(bands) <= MAX_OCTAVES:
+        raise ValueError(f"doh_select: {len(bands)} octaves, not in "
+                         f"[1, {MAX_OCTAVES}]")
+    ha, wa = atlas.shape
+    for row_off, h, w, _, r_cands in bands:
+        if not (row_off >= 0 and h >= 1 and w >= 1 and row_off + h <= ha
+                and w <= wa):
+            raise ValueError(f"doh_select: band rows {row_off}..{row_off + h}"
+                             f" x {w} columns outside the {ha}x{wa} atlas")
+        if not 1 <= r_cands <= MAX_CANDS:
+            raise ValueError(f"doh_select: r_cands={r_cands} not in "
+                             f"[1, {MAX_CANDS}]")
+
+
+def _launch(atlas: torch.Tensor, bands, threshold: float, n_scales: int,
+            base_sigma: float, spacing: float):
     from ... import _build
     global LAUNCHES
-    if not 1 <= r_cands <= MAX_CANDS:
-        raise ValueError(f"doh_select kernel: r_cands={r_cands} not in "
-                         f"[1, {MAX_CANDS}]")
-    radii, s4, table = _tap_tables(n_scales, base_sigma, spacing,
-                                   "doh_select")
-    h, w = x.shape
-    out_f = lambda: torch.empty((h, r_cands), dtype=torch.float32,
-                                device=x.device)
-    sc, dr, dc = out_f(), out_f(), out_f()
-    col = torch.empty((h, r_cands), dtype=torch.int32, device=x.device)
-    lib = _build.library()
-    err = lib.doh_select_launch(
-        x.data_ptr(), h, w, r_cands, float(threshold), border, n_scales,
-        radii.ctypes.data, s4.ctypes.data, table.ctypes.data,
-        sc.data_ptr(), col.data_ptr(), dr.data_ptr(), dc.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    radii, s4, table = _tap_tables(n_scales, base_sigma, spacing)
+    tc = tile_cols(int(radii.max()))
+    table_b = np.asarray(bands, np.int32).reshape(-1, 5)
+    slots = [h * rc for _, h, _, _, rc in bands]
+    entries = sum(h * -(-w // tc) * rc for _, h, w, _, rc in bands)
+    dev = atlas.device
+    n = sum(slots)
+    sc, dr, dc = (torch.empty(n, dtype=torch.float32, device=dev)
+                  for _ in range(3))
+    col = torch.empty(n, dtype=torch.int32, device=dev)
+    scratch = torch.empty(4 * entries, dtype=torch.float32, device=dev)
+    err = _build.library().doh_select_launch(
+        atlas.data_ptr(), atlas.shape[1], len(bands), table_b.ctypes.data,
+        float(threshold), n_scales, radii.ctypes.data, s4.ctypes.data,
+        table.ctypes.data, sc.data_ptr(), col.data_ptr(), dr.data_ptr(),
+        dc.data_ptr(), scratch.data_ptr(), entries,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "doh_select")
     LAUNCHES += 1
-    return sc, col, dr, dc
+    out, o0 = [], 0
+    for (_, h, _, _, rc), k in zip(bands, slots):
+        out.append(tuple(a[o0:o0 + k].view(h, rc) for a in (sc, col, dr, dc)))
+        o0 += k
+    return out
+
+
+def doh_select_octaves(atlas: torch.Tensor, bands, threshold: float = 10.0,
+                       n_scales: int = 3, base_sigma: float = 1.2,
+                       spacing: float = 1.6, use_kernel: bool = True
+                       ) -> List[Tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor, torch.Tensor]]:
+    """Per-row top-``r_cands`` DoH candidates of every octave of a frame.
+
+    ``atlas``: (Ha, Wa) float32 holding the octave images as bands (the
+    pyramid atlas); ``bands``: one (row_off, h, w, border, r_cands) per
+    octave, its image being ``atlas[row_off:row_off + h, :w]``.  Returns per
+    octave (scores, cols, drs, dcs), each (h, r_cands): float32, int32,
+    float32, float32.  A CUDA atlas runs all octaves in one kernel call
+    unless ``use_kernel`` is False; a CPU atlas runs the plain version per
+    octave.
+    """
+    bands = [tuple(int(v) for v in b) for b in bands]
+    _check_bands(atlas, bands)
+    if atlas.is_cuda and use_kernel:
+        if atlas.dtype != torch.float32:
+            raise TypeError(f"doh_select kernel needs float32, got "
+                            f"{atlas.dtype}")
+        return _launch(atlas.contiguous(), bands, threshold, n_scales,
+                       base_sigma, spacing)
+    return [doh_select_plain(atlas[r:r + h, :w], rc, threshold, n_scales,
+                             base_sigma, b, spacing)
+            for r, h, w, b, rc in bands]
 
 
 def doh_select(image: torch.Tensor, r_cands: int = 4, threshold: float = 10.0,
@@ -171,7 +237,8 @@ def doh_select(image: torch.Tensor, r_cands: int = 4, threshold: float = 10.0,
                spacing: float = 1.6, use_kernel: bool = True
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                           torch.Tensor]:
-    """(H, W) image -> per-row top-``r_cands`` DoH candidates.
+    """(H, W) image -> per-row top-``r_cands`` DoH candidates: the
+    one-octave case of ``doh_select_octaves``.
 
     Returns (scores, cols, drs, dcs), each (H, r_cands): float32, int32,
     float32, float32.  A CUDA tensor runs the CUDA kernel unless
@@ -179,12 +246,11 @@ def doh_select(image: torch.Tensor, r_cands: int = 4, threshold: float = 10.0,
     """
     if image.dim() != 2:
         raise ValueError(f"doh_select expects (H, W), got {tuple(image.shape)}")
-    if image.is_cuda and use_kernel:
-        x = image.to(torch.float32).contiguous()
-        return _launch(x, r_cands, threshold, n_scales, base_sigma, border,
-                       spacing)
-    return doh_select_plain(image, r_cands, threshold, n_scales, base_sigma,
-                            border, spacing)
+    h, w = image.shape
+    return doh_select_octaves(image.to(torch.float32), [(0, h, w, border,
+                                                         r_cands)],
+                              threshold, n_scales, base_sigma, spacing,
+                              use_kernel)[0]
 
 
 def doh_score_map_plain(image: torch.Tensor, threshold: float = 10.0,
@@ -203,8 +269,7 @@ def _launch_score_map(x: torch.Tensor, threshold: float, n_scales: int,
                       base_sigma: float, border: int, spacing: float):
     from ... import _build
     global SCORE_MAP_LAUNCHES
-    radii, s4, table = _tap_tables(n_scales, base_sigma, spacing,
-                                   "doh_score_map")
+    radii, s4, table = _tap_tables(n_scales, base_sigma, spacing)
     h, w = x.shape
     score = torch.empty((h, w), dtype=torch.float32, device=x.device)
     raw = torch.empty((h, w), dtype=torch.float32, device=x.device)

@@ -40,7 +40,8 @@ def test_color_compose_matches_jax(name):
     offsets = CASES[name]
     frames = _frames(len(name), len(offsets) + 1)
     ref = np.asarray(jcompose.compose(frames, offsets, JStitchConfig()))
-    got = tcompose.compose(frames, offsets, StitchConfig())
+    got = tcompose.compose(frames, offsets, StitchConfig(),
+                           device="cpu")
     assert got.dtype == np.uint8 and got.shape == ref.shape
     assert got.shape == tcompose.compute_placement(
         offsets, (H, W)).canvas_shape + (3,)
@@ -50,8 +51,8 @@ def test_color_compose_matches_jax(name):
 def test_lone_color_frame():
     frames = _frames(1, 1)
     ref = np.asarray(jcompose.compose(frames, [], JStitchConfig()))
-    np.testing.assert_array_equal(tcompose.compose(frames, [],
-                                                   StitchConfig()), ref)
+    np.testing.assert_array_equal(tcompose.compose(frames, [], StitchConfig(),
+                                                   device="cpu"), ref)
     np.testing.assert_array_equal(ref, frames[0])
 
 
@@ -117,7 +118,8 @@ def test_cuda_compose_matches_cpu(color):
         frames = _frames(len(name), len(offsets) + 1)
         if not color:
             frames = frames[..., 1]
-        cpu = tcompose.compose(frames, offsets, StitchConfig())
+        cpu = tcompose.compose(frames, offsets, StitchConfig(),
+                               device="cpu")
         dev = tcompose.compose(torch.as_tensor(frames, device="cuda"),
                                offsets, StitchConfig(), return_device=True)
         assert dev.device.type == "cuda"

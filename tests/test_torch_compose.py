@@ -46,7 +46,7 @@ def test_compose_matches_jax(name):
     _, tsteps, _ = tcompose.plan_compose(offsets, (H, W), cfg)
     assert tsteps == jsteps
     ref = np.asarray(jcompose.compose(frames, offsets, jcfg))
-    got = tcompose.compose(frames, offsets, cfg)
+    got = tcompose.compose(frames, offsets, cfg, device="cpu")
     assert got.dtype == np.uint8
     np.testing.assert_array_equal(got, ref)
 

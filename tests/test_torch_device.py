@@ -25,3 +25,27 @@ def test_cli_without_device_needs_cuda(no_cuda, tmp_path):
     with pytest.raises(SystemExit, match="--device cpu"):
         cli.main(["stitch", str(tmp_path), str(tmp_path / "out")])
     assert not (tmp_path / "out").exists()
+
+
+def test_compose_numpy_frames_need_cuda_or_cpu(no_cuda):
+    """``compose`` and ``compose_streamed`` take numpy frames to the card
+    unless the caller passes ``device="cpu"``; with it, ``compose`` gives
+    the JAX package's panorama."""
+    import numpy as np
+
+    from imagestitch_tpu.config import StitchConfig as JStitchConfig
+    from imagestitch_tpu.core import compose as jcompose
+    from imagestitch_tpu_torch import compose
+    from imagestitch_tpu_torch.core import stream_out
+
+    frames = np.random.default_rng(0).integers(0, 255, (3, 60, 80, 3),
+                                               np.uint8)
+    offsets = [(40, 3), (-2, 50)]
+    cfg = StitchConfig()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        compose(frames, offsets, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        stream_out.compose_streamed(frames, offsets, cfg)
+    np.testing.assert_array_equal(
+        compose(frames, offsets, cfg, device="cpu"),
+        np.asarray(jcompose.compose(frames, offsets, JStitchConfig())))

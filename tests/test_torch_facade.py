@@ -123,7 +123,8 @@ def test_stream_output_routes(color, monkeypatch, route):
         ImageBatch(gray=gray, color=None, files=files))
     offs = res[0].offsets
     want = (stream_out.compose_host(gray, offs, _gray_cfg())
-            if route == "native" else compose.compose(gray, offs, _gray_cfg()))
+            if route == "native"
+            else compose.compose(gray, offs, _gray_cfg(), device="cpu"))
     np.testing.assert_array_equal(res[0].image, want)
     cfg = _gray_cfg(stream_output=True, color_mode=True)
     res = Stitcher(cfg, device="cpu").stitch_batch(

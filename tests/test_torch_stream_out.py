@@ -71,9 +71,10 @@ def test_compose_streamed_equals_compose(color):
     cfg = StitchConfig(color_mode=color)
     for k, offsets in enumerate(OFFSET_CASES):
         tiles = _tiles(10 + k, offsets, color)
-        full = tcompose.compose(tiles, offsets, cfg)
+        full = tcompose.compose(tiles, offsets, cfg, device="cpu")
         np.testing.assert_array_equal(
-            tstream.compose_streamed(tiles, offsets, cfg), full)
+            tstream.compose_streamed(tiles, offsets, cfg, device="cpu"),
+            full)
         np.testing.assert_array_equal(
             tstream.compose_streamed(tiles, offsets, cfg,
                                      frames_dev=torch.as_tensor(tiles)), full)
@@ -87,7 +88,8 @@ def test_host_matches_device_within_one_level():
         for k, offsets in enumerate(OFFSET_CASES):
             tiles = _tiles(20 + k, offsets, color)
             host = tstream.compose_host(tiles, offsets, cfg).astype(np.int32)
-            dev = tcompose.compose(tiles, offsets, cfg).astype(np.int32)
+            dev = tcompose.compose(tiles, offsets, cfg,
+                                   device="cpu").astype(np.int32)
             diff = np.abs(host - dev)
             assert diff.max() <= 1 and (diff != 0).mean() < 5e-2
 
@@ -104,7 +106,8 @@ def test_streamed_single_image():
     tiles = np.random.default_rng(5).integers(1, 255, (1, 60, 80, 3),
                                               np.uint8)
     np.testing.assert_array_equal(
-        tstream.compose_streamed(tiles, [], StitchConfig()), tiles[0])
+        tstream.compose_streamed(tiles, [], StitchConfig(), device="cpu"),
+        tiles[0])
     np.testing.assert_array_equal(
         tstream.compose_color_host(tiles, [], StitchConfig()), tiles[0])
     with pytest.raises(ValueError, match="uint8"):     # runtime takes u8*
