@@ -13,15 +13,19 @@ Phases, one line of output each:
                 stream sleeps; the K1 and K2 wrappers' host time a call is
                 printed beside), its bound (the least time the card could
                 take: the larger of its FP32 operations over 67 TFLOP/s
-                and its bytes, each input read once and each output
-                written once, over 3.35 TB/s) and, where one PyTorch call
+                (K3 and K5: their three TF32 products per multiply-add
+                over 495 TFLOP/s, the FP32 bound printed beside) and its
+                bytes, each input read once and each output written
+                once, over 3.35 TB/s) and, where one PyTorch call
                 computes the same function, that call's time:
                 K1 in one call over the four octave bands of a 1936x2584
                 frame's atlas (as the fused pool calls it) and K4 per
                 octave (both bit-equal to their plain versions), K2 on
                 that frame's 11,616 candidates, K3 on 16 pairs x 4 configs
                 x 1024 x 1024 x 128, K5 on 1024 x 1024 x 128 (the oriented
-                mini pool) and 11,616 x 11,616 x 128 (the fused pool), K6
+                mini pool; its own entry "at_1024" in K5's record, faster
+                than its plain version) and 11,616 x 11,616 x 128 (the
+                fused pool), K6
                 on its prototype's micro-benchmark (6,144 windows of 24
                 rows x 128 columns of a 4096x2688 atlas), which is also
                 its only path: one call with the counts from 0;
@@ -39,7 +43,9 @@ Phases, one line of output each:
                 (d) feature, default FeatureConfig (11 frames): whole-image
                     match (K5) and vote of every pair over the fused pool,
                     and the oriented retry (K4, a 1024-slot pool) of pair 9
-                    when it fails with some valid matches.
+                    when it fails with some valid matches: two K5 calls,
+                    one for every pair of the sequence and one for the
+                    retry.
                 Each path: every registered pair within 1 px of the truth,
                 kernel run == plain run, each of its kernels launched.
   5. files    — the user's workflow, PNG files on disk to panoramas on
@@ -95,8 +101,9 @@ import time
 
 
 #: one H100 SXM at 700 W (NVIDIA's data sheet): float32 outside the tensor
-#: cores, and device memory
+#: cores, TF32 on the tensor cores (dense), and device memory
 FP32_PEAK = 67e12
+TF32_PEAK = 495e12
 HBM_RATE = 3.35e12
 #: FP32 operations of K2 per keypoint (csrc/describe.cu): 256 samples of 37
 #: (two 3-tap smoothings 10, two differences 3 + 9 + 5, the window weight 2,
@@ -292,19 +299,26 @@ def main():
     # ---- 3. each kernel against its plain version
     records = []
 
+    def bound(ops, nbytes, peak=FP32_PEAK):
+        """(bound ms, its term): ``ops`` operations at ``peak`` against
+        ``nbytes`` bytes (each input read once, each output written once)
+        at the memory rate."""
+        t_ops, t_bytes = ops / peak, nbytes / HBM_RATE
+        return (max(t_ops, t_bytes) * 1e3,
+                "operations" if t_ops >= t_bytes else "bytes")
+
     def record(name, source, replaces, err, ms, plain_ms, ops, nbytes,
-               library_ms=None):
-        """One kernel's line; ``ops`` FP32 operations and ``nbytes`` bytes
-        (each input read once, each output written once) give its bound."""
-        t_ops, t_bytes = ops / FP32_PEAK, nbytes / HBM_RATE
+               library_ms=None, peak=FP32_PEAK, **extra):
+        """One kernel's line; ``ops`` operations at ``peak`` (FP32 on the
+        CUDA cores unless the kernel's route is another) and ``nbytes``
+        bytes give its bound."""
+        bound_ms, bound_by = bound(ops, nbytes, peak)
         records.append(dict(name=name, route="cuda",
                             source=f"imagestitch_tpu_torch/csrc/{source}",
                             replaces=replaces, max_abs_err=err, ms=ms,
-                            plain_ms=plain_ms,
-                            bound_ms=max(t_ops, t_bytes) * 1e3,
-                            bound_by=("operations" if t_ops >= t_bytes
-                                      else "bytes"),
-                            library_ms=library_ms))
+                            plain_ms=plain_ms, bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=library_ms,
+                            **extra))
 
     # K1 and K4: the four octaves of frame 0, as the pools call them: K1 in
     # one call over the octave bands of the frame's atlas, K4 per octave
@@ -395,12 +409,16 @@ def main():
             and torch.equal(got[4][same], ref[4][same])):
         raise AssertionError("top2_l2_coords: matched coordinates differ")
     bsz, ka, dim = da.shape
+    # 3xTF32: three tensor-core products per multiply-add; the FP32 bound of
+    # the same products on the CUDA cores is kept beside it
+    k3_ops = 2 * bsz * ka * db.shape[1] * dim
+    k3_bytes = (4 * (da.numel() + db.numel() + 2 * rb.numel() + 5 * bsz * ka)
+                + vb.numel())
     record("top2_l2_coords", "matcher.cu",
            "imagestitch_tpu/ops/pallas/matcher.py:150", err3,
            cuda_ms(torch, lambda: k3(True)), cuda_ms(torch, lambda: k3(False)),
-           2 * bsz * ka * db.shape[1] * dim,
-           4 * (da.numel() + db.numel() + 2 * rb.numel() + 5 * bsz * ka)
-           + vb.numel())
+           3 * k3_ops, k3_bytes, peak=TF32_PEAK, shape=list(da.shape),
+           fp32_bound_ms=bound(k3_ops, k3_bytes)[0])
     # the nearest PyTorch yardstick is two calls (Euclidean, no mask), so
     # it is a note and not the kernel's library_ms
     cdist_ms = {"K3": cuda_ms(torch, lambda: torch.cdist(da, db).topk(
@@ -412,23 +430,36 @@ def main():
     mini = freg.pool_features(gray[:2], dparams, sp_or, max_pool=1024)
     k5_sets = [(m[3][:1].contiguous(), m[3][1:2].contiguous(),
                 (m[2][1:2] > 0).contiguous()) for m in (mini, pool)]
-    k5_ms, k5_plain_ms, err5, ties5 = [], [], 0.0, 0
-    for a, b, v in k5_sets:
-        k5 = lambda use: kmatch.top2_l2(a, b, v, use_kernel=use)
-        e, t = check_top2(torch, "top2_l2", k5(True), k5(False))
-        err5, ties5 = max(err5, e), ties5 + t
-        k5_ms.append(cuda_ms(torch, lambda: k5(True)))
-        k5_plain_ms.append(cuda_ms(torch, lambda: k5(False), iters=5))
     if [tuple(s[0].shape) for s in k5_sets] != [(1, 1024, 128),
                                                 (1, 11616, 128)]:
         raise AssertionError(f"top2_l2: shapes {[s[0].shape for s in k5_sets]}")
+    k5 = []
+    for a, b, v in k5_sets:
+        run5 = lambda use: kmatch.top2_l2(a, b, v, use_kernel=use)
+        e, t = check_top2(torch, "top2_l2", run5(True), run5(False))
+        ops = 2 * a.shape[1] * b.shape[1] * a.shape[2]
+        nbytes = 4 * (a.numel() + b.numel() + 3 * a.shape[1]) + v.numel()
+        b_ms, b_by = bound(3 * ops, nbytes, TF32_PEAK)
+        k5.append(dict(shape=list(a.shape), max_abs_err=e, argmin_ties=t,
+                       ms=cuda_ms(torch, lambda: run5(True)),
+                       plain_ms=cuda_ms(torch, lambda: run5(False), iters=5),
+                       bound_ms=b_ms, bound_by=b_by,
+                       fp32_bound_ms=bound(ops, nbytes)[0],
+                       cdist_topk_ms=cuda_ms(torch, lambda: torch.cdist(
+                           a, b).topk(2, largest=False), iters=5)))
     a5, b5, v5 = k5_sets[1]
     record("top2_l2", "matcher.cu", "imagestitch_tpu/ops/pallas/matcher.py:93",
-           err5, k5_ms[1], k5_plain_ms[1],
-           2 * a5.shape[1] * b5.shape[1] * a5.shape[2],
-           4 * (a5.numel() + b5.numel() + 3 * a5.shape[1]) + v5.numel())
-    cdist_ms["K5"] = cuda_ms(torch, lambda: torch.cdist(a5, b5).topk(
-        2, largest=False), iters=5)
+           k5[1]["max_abs_err"], k5[1]["ms"], k5[1]["plain_ms"],
+           3 * 2 * a5.shape[1] * b5.shape[1] * a5.shape[2],
+           4 * (a5.numel() + b5.numel() + 3 * a5.shape[1]) + v5.numel(),
+           peak=TF32_PEAK, shape=list(a5.shape),
+           fp32_bound_ms=k5[1]["fp32_bound_ms"],
+           at_1024={k: v for k, v in k5[0].items() if k != "cdist_topk_ms"})
+    cdist_ms["K5"] = k5[1]["cdist_topk_ms"]
+    cdist_ms["K5 1024^2"] = k5[0]["cdist_topk_ms"]
+    if not k5[0]["ms"] < k5[0]["plain_ms"]:
+        raise AssertionError(f"top2_l2 at 1024^2: {k5[0]['ms']:.4f} ms, "
+                             f"plain {k5[0]['plain_ms']:.4f} ms")
 
     # K6: its prototype's micro-benchmark (profile_r4_micro2.py:115-125),
     # its only path: one call with the counts from 0, then the checks
@@ -471,15 +502,26 @@ def main():
         f"{r['name']} max_abs_err {r['max_abs_err']:.3g}, {r['ms']:.4f} ms "
         f"(plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
         f"{r['bound_by']}, library {r['library_ms']})" for r in records)
+        + "; K3/K5 on the tensor cores (3xTF32): " + "; ".join(
+            f"{r['name']} {r['shape']} max |d - d_plain| "
+            f"{r['max_abs_err']:.3g}, {r['ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms (3 TF32 products at 495 TFLOP/s; FP32 "
+            f"{r['fp32_bound_ms']:.4f} ms)" for r in records
+            if r["name"] in ("top2_l2_coords", "top2_l2"))
+        + f"; top2_l2 {k5[0]['shape']} max |d - d_plain| "
+        f"{k5[0]['max_abs_err']:.3g}, {k5[0]['ms']:.4f} ms (plain "
+        f"{k5[0]['plain_ms']:.4f} ms, bound {k5[0]['bound_ms']:.4f} ms by "
+        f"{k5[0]['bound_by']}; FP32 {k5[0]['fp32_bound_ms']:.4f} ms)"
         + f"; K1 live slots {live_n}, bit-equal, its bit-equal ceiling "
         f"{2 * records[0]['bound_ms']:.4f} ms (no FMA: half the FP32 rate); "
         f"K4 live {live4}, bit-equal; wrapper host time a call (enqueue, "
         f"host clock) K1 {wrapper_us['K1']:.1f} us, K2 "
         f"{wrapper_us['K2']:.1f} us; K3 "
-        f"argmin ties {ties3}; K5 argmin ties {ties5}, at 1024^2 "
-        f"{k5_ms[0]:.3f} ms (plain {k5_plain_ms[0]:.3f} ms); cdist + topk "
+        f"argmin ties {ties3}; K5 argmin ties "
+        f"{k5[0]['argmin_ties'] + k5[1]['argmin_ties']}; cdist + topk "
         f"(not the same function: Euclidean, unmasked) K3 shape "
-        f"{cdist_ms['K3']:.3f} ms, K5 shape {cdist_ms['K5']:.3f} ms; K6 "
+        f"{cdist_ms['K3']:.4f} ms, K5 shape {cdist_ms['K5']:.4f} ms, K5 "
+        f"1024^2 {cdist_ms['K5 1024^2']:.4f} ms; K6 "
         f"from the script's numpy check {err6:.3g}, windows touch "
         f"{int(touched.sum())} row segments of 512 B")
 
@@ -553,7 +595,7 @@ def main():
     run_path("(d) feature default", base.replace(
         registration="feature", features=FeatureConfig()), 11,
         [(0, 10), (10, 11)],
-        {"top2_l2": None, "doh_select": 11, "describe_atlas": 11})
+        {"top2_l2": 2, "doh_select": 11, "describe_atlas": 11})
 
     # ---- 5. files to files through the CLI, StitchConfig() defaults
     t0 = time.perf_counter()
@@ -869,7 +911,7 @@ def main():
     hold(label, part, EXPECTED["hybrid"], "the JAX package")
     pcfg = cfg.replace(direction=direction)
     gaps = hold(label, part, treg.register_sequence_phase(
-        pframes, pcfg, pairs=failed), "the CPU")
+        pframes, pcfg, pairs=failed, device="cpu"), "the CPU")
     report_line(label, st, res, wall, launches, gaps)
     recs, ms, _ = timed(torch, lambda: treg.register_sequence_phase(
         pgray, pcfg, pairs=failed))

@@ -13,12 +13,21 @@ hand-written CUDA kernels for Hopper (``csrc/``) where the JAX package runs
 Pallas kernels, and the shared C++ host runtime (``native/``) where it runs
 that.  Imports torch only — never jax or the JAX package.
 """
-from .config import EnhanceConfig, FeatureConfig, StitchConfig
-from .core.compose import compose
+from .config import (EnhanceConfig, FeatureConfig, StitchConfig,
+                     direction_increase)
+from .core import registration
+from .core.compose import compose, compute_placement
 from .core.stitcher import Stitcher, StitchResult
 from .core.stream_out import compose_color_host, compose_host, compose_streamed
 from .io.dataset import ImageBatch, load_batch
 
-__all__ = ["StitchConfig", "FeatureConfig", "EnhanceConfig", "Stitcher",
-           "StitchResult", "ImageBatch", "load_batch", "compose",
-           "compose_host", "compose_color_host", "compose_streamed"]
+__version__ = "0.1.0"
+
+# the JAX package's exports, in its order; compose_host_positions comes
+# with the global solver (ROADMAP Queue 1 item 20)
+__all__ = [
+    "StitchConfig", "FeatureConfig", "EnhanceConfig", "direction_increase",
+    "Stitcher", "StitchResult", "compose", "compute_placement",
+    "compose_streamed", "compose_color_host", "compose_host",
+    "registration",
+]

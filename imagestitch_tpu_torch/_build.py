@@ -42,11 +42,11 @@ SIGNATURES = {
     "doh_score_map_launch": [P, I, I, F, I, I, P, P, P, P, P, P],
     # atlas, ah, aw, r0, c0, k, gw, extended, out, stream
     "describe_launch": [P, I, I, P, P, I, P, I, P, P],
-    # da, db, valid_b, rows_b, cols_b, batch, ka, kb, d,
+    # da, db, valid_b, rows_b, cols_b, batch, ka, kb, d, splits, scratch,
     # d0, i0, d1, rb_sel, cb_sel, stream
-    "matcher_launch": [P, P, P, P, P, I, I, I, I, P, P, P, P, P, P],
-    # da, db, valid_b, batch, ka, kb, d, d0, i0, d1, stream
-    "matcher_top2_launch": [P, P, P, I, I, I, I, P, P, P, P],
+    "matcher_launch": [P, P, P, P, P, I, I, I, I, I, P, P, P, P, P, P, P],
+    # da, db, valid_b, batch, ka, kb, d, splits, scratch, d0, i0, d1, stream
+    "matcher_top2_launch": [P, P, P, I, I, I, I, I, P, P, P, P, P],
     # atlas, ah, aw, r0, ca, k, rows, cols, out, stream
     "window_colsum_launch": [P, I, I, P, P, I, I, I, P, P],
 }

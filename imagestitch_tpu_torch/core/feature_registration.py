@@ -494,13 +494,15 @@ def _oriented_fallback_incre(images: torch.Tensor,
     return out
 
 
-def register_sequence_features_incre(images, cfg: StitchConfig, device=None
+def register_sequence_features_incre(images, cfg: StitchConfig,
+                                     device="cuda"
                                      ) -> List[reg.PairRegistration]:
-    """Incremental ROI feature search over an (N, H, W) grayscale batch
-    (numpy or tensor) on ``device`` (default: the tensor's own device,
-    the CPU for numpy input)."""
+    """Incremental ROI feature search over an (N, H, W) grayscale batch: a
+    tensor registers where it lies, numpy frames on ``device`` (the card
+    unless the caller passes ``device="cpu"``)."""
     check_supported(cfg)
-    images = reg._as_images(images, device)
+    images = reg._as_images(images, device,
+                            "register_sequence_features_incre")
     n, h, w = images.shape
     if n < 2:
         return []
@@ -524,8 +526,14 @@ def _match_vote_adjacent(pool, ia: np.ndarray, cfg: StitchConfig,
     valid = scores > 0
     out: List[reg.PairRegistration] = []
     max_kp = descs.shape[1]
-    # pairs per matcher call: bounds the plain version's distance matrices
-    pchunk = max(1, (1 << 28) // (4 * max_kp * max_kp))
+    # pairs per matcher call: the plain version holds a Ka x Kb distance
+    # matrix a pair, the kernel only its gathered inputs (2 x Ka x D floats
+    # a pair), so on the kernel route every pair of a sequence goes in one
+    # call; each bound is 1 GiB
+    if descs.is_cuda and cfg.use_kernels:
+        pchunk = max(1, (1 << 30) // (8 * max_kp * descs.shape[2]))
+    else:
+        pchunk = max(1, (1 << 28) // (4 * max_kp * max_kp))
     for s in range(0, len(ia), pchunk):
         sub = torch.as_tensor(ia[s:s + pchunk], dtype=torch.long,
                               device=descs.device)
@@ -551,10 +559,11 @@ def _match_vote_adjacent(pool, ia: np.ndarray, cfg: StitchConfig,
     return out
 
 
-def register_sequence_features(images, cfg: StitchConfig, device=None
+def register_sequence_features(images, cfg: StitchConfig, device="cuda"
                                ) -> List[reg.PairRegistration]:
     """Whole-image feature search for every adjacent pair of an (N, H, W)
-    grayscale batch (non-incremental).
+    grayscale batch (non-incremental): a tensor registers where it lies,
+    numpy frames on ``device`` (the card unless ``device="cpu"``).
 
     Each frame is detected and described once (max_keypoints slots where
     the score-map pool runs); adjacent pairs are then matched and
@@ -562,7 +571,7 @@ def register_sequence_features(images, cfg: StitchConfig, device=None
     that fail with some valid match retry over an oriented pool of their
     frames."""
     check_supported(cfg)
-    images = reg._as_images(images, device)
+    images = reg._as_images(images, device, "register_sequence_features")
     n = images.shape[0]
     if n < 2:
         return []

@@ -26,6 +26,7 @@ import torch
 
 from ..config import StitchConfig, direction_increase, max_roi_scale
 from ..ops import phase_corr, roi
+from .compose import resolve_device
 
 
 @dataclasses.dataclass
@@ -57,11 +58,13 @@ def pad_indices(idx: np.ndarray) -> Tuple[np.ndarray, int]:
     return np.concatenate([idx, np.full(b - n, idx[-1], idx.dtype)]), n
 
 
-def _as_images(images, device) -> torch.Tensor:
-    """An (N, H, W) batch as a tensor on ``device`` (None: where it is, the
-    CPU for numpy)."""
-    images = torch.as_tensor(images)
-    return images if device is None else images.to(device)
+def _as_images(images, device, caller: str) -> torch.Tensor:
+    """An (N, H, W) batch as a tensor: a tensor stays where it lies, numpy
+    frames go to ``device`` (a CUDA device without CUDA raises, naming
+    ``device='cpu'``)."""
+    if isinstance(images, torch.Tensor):
+        return images
+    return torch.as_tensor(images).to(resolve_device(device, caller))
 
 
 class AttemptCache:
@@ -207,17 +210,18 @@ LAST_PHASE_STATS: Dict[str, object] = {}
 
 def register_sequence_phase(images, cfg: StitchConfig,
                             pairs: Optional[Sequence[int]] = None,
-                            device=None) -> List[PairRegistration]:
+                            device="cuda") -> List[PairRegistration]:
     """Incremental phase-correlation registration of a full sequence.
 
-    ``images``: (N, H, W) uint8 grayscale batch (numpy or tensor) on
-    ``device`` (default: the tensor's own device, the CPU for numpy).
+    ``images``: (N, H, W) uint8 grayscale batch: a tensor registers where
+    it lies, numpy frames on ``device`` (the card unless the caller passes
+    ``device="cpu"``).
     Replaces the reference's per-pair, per-attempt cv2.phaseCorrelate loop.
     ``pairs``: optional explicit subset of pair indices to register (results
     align with ``pairs``); used by the hybrid fallback so one failed pair
     costs one-pair dispatches, not a full-sequence sweep.
     """
-    images = _as_images(images, device)
+    images = _as_images(images, device, "register_sequence_phase")
     n, h, w = images.shape
     if n < 2:
         return []
@@ -280,7 +284,7 @@ def _phase_whole(images: torch.Tensor, hp: int, wp: int):
 
 
 def register_sequence_phase_whole(images, cfg: StitchConfig, mesh=None,
-                                  device=None) -> List[PairRegistration]:
+                                  device="cuda") -> List[PairRegistration]:
     """Whole-image phase correlation of every adjacent pair.
 
     Working replacement for the reference's vestigial
@@ -296,11 +300,11 @@ def register_sequence_phase_whole(images, cfg: StitchConfig, mesh=None,
             "the whole-image phase path over a device mesh is not ported: a "
             "mesh is ROADMAP Queue 1 item 22, and its tensor-parallel FFT "
             "(parallel/tp_fft.py) is on ROADMAP's do-not-port list")
-    images = _as_images(images, device)
+    images = _as_images(images, device, "register_sequence_phase_whole")
     n, h, w = images.shape
     if n < 2:
         return []
-    hp = phase_corr.optimal_dft_size(2 * h)
+    hp =phase_corr.optimal_dft_size(2 * h)
     wp = phase_corr.optimal_dft_size(2 * w)
     sx, sy, resp = _phase_whole(images, hp, wp)
     out: List[PairRegistration] = []
@@ -316,7 +320,7 @@ def register_sequence_phase_whole(images, cfg: StitchConfig, mesh=None,
     return out
 
 
-def register_sequence_hybrid(images, cfg: StitchConfig, device=None
+def register_sequence_hybrid(images, cfg: StitchConfig, device="cuda"
                              ) -> List[PairRegistration]:
     """Feature registration with per-pair phase-correlation fallback.
 
@@ -327,8 +331,8 @@ def register_sequence_hybrid(images, cfg: StitchConfig, device=None
     successful feature pair before the first failure established.
     """
     from . import feature_registration
-    images = _as_images(images, device)
-    feat = feature_registration.register_sequence_features_incre(images, cfg)
+    images = _as_images(images, device, "register_sequence_hybrid")
+    feat =feature_registration.register_sequence_features_incre(images, cfg)
     failed = [k for k, r in enumerate(feat) if not r.ok]
     if not failed:
         return feat
@@ -351,14 +355,14 @@ def register_sequence_hybrid(images, cfg: StitchConfig, device=None
 # --------------------------------------------------------------------------
 
 def register_sequence_features_incre(images, cfg: StitchConfig,
-                                     device=None) -> List[PairRegistration]:
+                                     device="cuda") -> List[PairRegistration]:
     from . import feature_registration
     return feature_registration.register_sequence_features_incre(
         images, cfg, device=device)
 
 
 def register_sequence_features(images, cfg: StitchConfig,
-                               device=None) -> List[PairRegistration]:
+                               device="cuda") -> List[PairRegistration]:
     from . import feature_registration
     return feature_registration.register_sequence_features(
         images, cfg, device=device)

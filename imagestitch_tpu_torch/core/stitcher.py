@@ -215,14 +215,14 @@ class Stitcher:
         if (cfg.registration == "feature_incre"
                 and self.checkpoint_dir is None and not cfg.color_mode):
             recs, gray_dev, gray_host = prefetch.register_sequence_pipelined(
-                files, cfg.replace(direction=self._direction), self.device,
-                keep_host=cfg.stream_output)
+                files, cfg.replace(direction=self._direction),
+                keep_host=cfg.stream_output, device=self.device)
             self._after_register(recs)
             batch = dataset.ImageBatch(gray=gray_dev, color=None,
                                        files=list(files), gray_host=gray_host)
             return self.stitch_batch(batch, recs=recs)
         return self.stitch_batch(prefetch.load_batch_pipelined(
-            files, cfg.color_mode, self.device))
+            files, cfg.color_mode, device=self.device))
 
     # -- dataset orchestration (L4) ----------------------------------------
 

@@ -19,6 +19,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.compose import resolve_device
 from . import dataset
 
 
@@ -86,20 +87,22 @@ def _cat(chunks):
         else np.concatenate(chunks))
 
 
-def pooled_features_pipelined(files: Sequence[str], cfg, device="cpu",
-                              chunk_frames: int = 16, keep_host: bool = False
+def pooled_features_pipelined(files: Sequence[str], cfg,
+                              chunk_frames: int = 16, keep_host: bool = False,
+                              *, device="cuda"
                               ) -> Tuple[tuple, torch.Tensor,
                                          Optional[np.ndarray]]:
     """Decode-overlapped pooled feature extraction of a whole sequence.
 
     Returns ``(pool, gray_dev, gray_host)``: the (rows, cols, scores, descs)
-    keypoint pool of every frame, the gray batch on ``device`` (kept for
-    composition) and, with ``keep_host``, the decoded host batch (input of
-    the streamed-output composers), else None.  Equal to ``load_batch`` +
+    keypoint pool of every frame, the gray batch on ``device`` (the card
+    unless the caller passes ``device="cpu"``; kept for composition) and,
+    with ``keep_host``, the decoded host batch (input of the
+    streamed-output composers), else None.  Equal to ``load_batch`` +
     ``_precompute_pool``.
     """
     from ..core import feature_registration as freg
-    upload = Uploader(device)
+    upload = Uploader(resolve_device(device, "pooled_features_pipelined"))
     dev_chunks, host_chunks, pools = [], [], []
     for batch in ChunkPrefetcher(files, color_mode=False,
                                  chunk_frames=chunk_frames):
@@ -114,16 +117,18 @@ def pooled_features_pipelined(files: Sequence[str], cfg, device="cpu",
 
 
 def load_batch_pipelined(files: Sequence[str], color_mode: bool,
-                         device="cpu", chunk_frames: int = 16
-                         ) -> dataset.ImageBatch:
-    """``dataset.load_batch`` with decode(k+1) ∥ copy(k): the gray frames
-    land on ``device``; color frames (composition input) stay on the
-    host."""
-    upload = Uploader(device)
+                         to_device: bool = True, chunk_frames: int = 16,
+                         *, device="cuda") -> dataset.ImageBatch:
+    """``dataset.load_batch`` with decode(k+1) ∥ copy(k): with
+    ``to_device`` the gray frames land on ``device`` (the card unless the
+    caller passes ``device="cpu"``), else they stay on the host as numpy;
+    color frames (composition input) stay on the host."""
+    upload = (Uploader(resolve_device(device, "load_batch_pipelined"))
+              if to_device else None)
     gray_chunks, color_chunks, all_files = [], [], []
     for batch in ChunkPrefetcher(files, color_mode=color_mode,
                                  chunk_frames=chunk_frames):
-        gray_chunks.append(upload(batch.gray))
+        gray_chunks.append(upload(batch.gray) if to_device else batch.gray)
         if color_mode:
             color_chunks.append(batch.color)
         all_files.extend(batch.files)
@@ -132,15 +137,16 @@ def load_batch_pipelined(files: Sequence[str], color_mode: bool,
         color=_cat(color_chunks) if color_mode else None, files=all_files)
 
 
-def register_sequence_pipelined(files: Sequence[str], cfg, device="cpu",
+def register_sequence_pipelined(files: Sequence[str], cfg,
                                 chunk_frames: int = 16,
-                                keep_host: bool = False):
+                                keep_host: bool = False, *, device="cuda"):
     """Decode-included ``feature_incre`` registration of a file sequence.
 
     Returns ``(records, gray_dev, gray_host)``: the records of
     ``register_sequence_features_incre`` on the decoded batch (the upright
     pool, the replay, then the oriented fallback for failed pairs), the
-    gray batch on ``device`` and, with ``keep_host``, the host batch.
+    gray batch on ``device`` (the card unless the caller passes
+    ``device="cpu"``) and, with ``keep_host``, the host batch.
     """
     from ..core import feature_registration as freg
     freg.check_supported(cfg)
@@ -148,7 +154,8 @@ def register_sequence_pipelined(files: Sequence[str], cfg, device="cpu",
     cfg_pool = cfg.replace(features=dataclasses.replace(
         cfg.features, upright=True)) if fast else cfg
     pool, gray_dev, gray_host = pooled_features_pipelined(
-        files, cfg_pool, device, chunk_frames, keep_host=keep_host)
+        files, cfg_pool, chunk_frames, keep_host,
+        device=resolve_device(device, "register_sequence_pipelined"))
     n, h, w = gray_dev.shape
     recs = freg.replay_from_pool(pool, n, (h, w), cfg_pool)
     if fast and any(not r.ok for r in recs):

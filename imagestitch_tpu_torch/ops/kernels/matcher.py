@@ -10,8 +10,15 @@ pairs x configs in one call, the whole-image path pairs.  The Pallas K5
 takes only query counts that are multiples of 256 (match.py:126 routes the
 rest to XLA); the CUDA kernel takes any count, so every L2 ``match_batch``
 on a CUDA tensor runs it.
+
+The kernel computes the products with 3xTF32 tensor-core MMAs at FP32
+accuracy and, where the grid of (query tiles x batch) blocks is small,
+splits the train axis into ``num_splits`` ranges that a merge kernel folds
+(one wrapper call, one count).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -61,24 +68,74 @@ def _check_shapes(name, da, db, *per_train):
                              f"{tuple(t.shape)} for {tuple(db.shape)}")
 
 
-def _launch(da, db, valid_b, rows_b, cols_b):
+#: queries per block and train rows per tile of the CUDA kernel
+TILE = 128
+
+
+def num_splits(batch: int, ka: int, kb: int, sms: int) -> int:
+    """Train-axis splits S for a grid of ``batch`` x ceil(ka / TILE)
+    blocks on ``sms`` SMs (one block an SM): the S of least modelled time,
+    waves x (tiles a split + 0.5 for the query tile's load) + 1 tile for
+    the merge when S > 1, among S whose splits all hold whole tiles; ties
+    go to the smaller S."""
+    blocks = batch * -(-ka // TILE)
+    tiles = -(-kb // TILE)
+    best, best_cost = 1, None
+    for s in range(1, tiles + 1):
+        per = -(-tiles // s)
+        if (s - 1) * per >= tiles:     # a split would be empty
+            continue
+        cost = -(-blocks * s // sms) * (per + 0.5) + (s > 1)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = s, cost
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _run(name, da, db, valid_b, rows_b=None, cols_b=None):
+    """One launch of the CUDA kernel (and its merge when S > 1): K3 with
+    the coordinates, K5 without.  Allocates the outputs and the splits'
+    scratch."""
     from ... import _build
-    global LAUNCHES
     b, ka, d = da.shape
     kb = db.shape[1]
     dev = da.device
+    splits = num_splits(b, ka, kb, _sm_count(dev))
     out_f = lambda: torch.empty((b, ka), dtype=torch.float32, device=dev)
-    d0, d1, rb_sel, cb_sel = out_f(), out_f(), out_f(), out_f()
+    d0, d1 = out_f(), out_f()
     i0 = torch.empty((b, ka), dtype=torch.int32, device=dev)
+    # the splits' (d0, i0, d1) planes, alive until the launch is enqueued
+    part = (torch.empty((3, splits, b, ka), dtype=torch.float32, device=dev)
+            if splits > 1 else None)
+    scratch = part.data_ptr() if part is not None else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _build.library()
+    if rows_b is None:
+        err = lib.matcher_top2_launch(
+            da.data_ptr(), db.data_ptr(), valid_b.data_ptr(), b, ka, kb, d,
+            splits, scratch, d0.data_ptr(), i0.data_ptr(), d1.data_ptr(),
+            stream)
+        _build.check(err, name)
+        return d0, i0, d1
+    rb_sel, cb_sel = out_f(), out_f()
     err = lib.matcher_launch(
         da.data_ptr(), db.data_ptr(), valid_b.data_ptr(), rows_b.data_ptr(),
-        cols_b.data_ptr(), b, ka, kb, d, d0.data_ptr(), i0.data_ptr(),
-        d1.data_ptr(), rb_sel.data_ptr(), cb_sel.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "top2_l2_coords")
-    LAUNCHES += 1
+        cols_b.data_ptr(), b, ka, kb, d, splits, scratch, d0.data_ptr(),
+        i0.data_ptr(), d1.data_ptr(), rb_sel.data_ptr(), cb_sel.data_ptr(),
+        stream)
+    _build.check(err, name)
     return d0, i0, d1, rb_sel, cb_sel
+
+
+def _launch(da, db, valid_b, rows_b, cols_b):
+    global LAUNCHES
+    out = _run("top2_l2_coords", da, db, valid_b, rows_b, cols_b)
+    LAUNCHES += 1
+    return out
 
 
 def top2_l2_coords(da: torch.Tensor, db: torch.Tensor, valid_b: torch.Tensor,
@@ -101,22 +158,10 @@ def top2_l2_coords(da: torch.Tensor, db: torch.Tensor, valid_b: torch.Tensor,
 
 
 def _launch_top2(da, db, valid_b):
-    from ... import _build
     global TOP2_LAUNCHES
-    b, ka, d = da.shape
-    kb = db.shape[1]
-    dev = da.device
-    d0 = torch.empty((b, ka), dtype=torch.float32, device=dev)
-    d1 = torch.empty((b, ka), dtype=torch.float32, device=dev)
-    i0 = torch.empty((b, ka), dtype=torch.int32, device=dev)
-    lib = _build.library()
-    err = lib.matcher_top2_launch(
-        da.data_ptr(), db.data_ptr(), valid_b.data_ptr(), b, ka, kb, d,
-        d0.data_ptr(), i0.data_ptr(), d1.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "top2_l2")
+    out = _run("top2_l2", da, db, valid_b)
     TOP2_LAUNCHES += 1
-    return d0, i0, d1
+    return out
 
 
 def top2_l2(da: torch.Tensor, db: torch.Tensor, valid_b: torch.Tensor,

@@ -93,17 +93,20 @@ def _phase_correlate_one(a: torch.Tensor, b: torch.Tensor, hp: int, wp: int
     return wp / 2.0 - cc, hp / 2.0 - cr, wsum
 
 
-def phase_correlate_batch(a, b, device=None
+def phase_correlate_batch(a, b, device="cuda"
                           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Batched phase correlation.
 
-    a, b: ``(P, h, w)`` arrays or tensors (any real dtype; cast to float32
-    on ``device``, by default the tensors' own device, the CPU for numpy).
+    a, b: ``(P, h, w)`` arrays or tensors (any real dtype, cast to float32):
+    a tensor stays where it lies, numpy goes to ``device`` (the card unless
+    the caller passes ``device="cpu"``; without CUDA the card raises).
     Returns host arrays ``(shift_x, shift_y, response)`` of shape ``(P,)``
     with cv2's (x=col, y=row) convention.
     """
-    a = torch.as_tensor(a, device=device).to(torch.float32)
-    b = torch.as_tensor(b, device=device).to(torch.float32)
+    from ..core.compose import resolve_device
+    a, b = (x if isinstance(x, torch.Tensor) else torch.as_tensor(x).to(
+        resolve_device(device, "phase_correlate_batch")) for x in (a, b))
+    a, b = a.to(torch.float32), b.to(torch.float32)
     h, w = a.shape[-2], a.shape[-1]
     out = _phase_correlate_one(a, b, optimal_dft_size(h), optimal_dft_size(w))
     return tuple(t.cpu().numpy() for t in out)

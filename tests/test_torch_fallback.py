@@ -62,7 +62,8 @@ def test_default_config_fallback_matches_jax(frames, monkeypatch):
     calls = count_score_map_frames(monkeypatch, tfr)
     jcfg = _jcfg()
     ref = jfr.register_sequence_features_incre(frames, jcfg)
-    got = tfr.register_sequence_features_incre(frames, config_from_jax(jcfg))
+    got = tfr.register_sequence_features_incre(frames, config_from_jax(jcfg),
+                                               device="cpu")
     assert calls == [(H, W)] * 2
     assert_records_equal(got, ref)
     assert [r.ok for r in got] == [True, True, True, False]
@@ -89,7 +90,8 @@ def test_score_map_pool_paths_match_jax(frames, feat, monkeypatch):
     calls = count_score_map_frames(monkeypatch, tfr)
     jcfg = _jcfg(**feat)
     ref = jfr.register_sequence_features_incre(seq, jcfg)
-    got = tfr.register_sequence_features_incre(seq, config_from_jax(jcfg))
+    got = tfr.register_sequence_features_incre(seq, config_from_jax(jcfg),
+                                               device="cpu")
     assert calls == [(H, W)] * 4
     assert_records_equal(got, ref)
     assert [r.direction for r in got] == [1, 2, 3]

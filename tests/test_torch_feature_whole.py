@@ -119,7 +119,8 @@ def test_register_sequence_features_matches_jax(frames, monkeypatch):
     calls = count_score_map_frames(monkeypatch, tfr)
     jcfg = _jcfg()
     ref = jfr.register_sequence_features(frames, jcfg)
-    got = tfr.register_sequence_features(frames, config_from_jax(jcfg))
+    got = tfr.register_sequence_features(frames, config_from_jax(jcfg),
+                                         device="cpu")
     assert_records_equal(got, ref, subpix_atol=0)
     assert [r.ok for r in got] == [True, True, True, False]
     assert got[3].attempts == 1 and got[0].scale == 0

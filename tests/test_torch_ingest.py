@@ -111,7 +111,8 @@ def test_chunk_prefetcher_covers_every_file_in_order(frames, tmp_path):
 @pytest.mark.parametrize("color", [False, True])
 def test_load_batch_pipelined_matches_load_batch(frames, tmp_path, color):
     files = _write(tmp_path, frames[1] if color else frames[0], "png")
-    got = prefetch.load_batch_pipelined(files, color, chunk_frames=2)
+    got = prefetch.load_batch_pipelined(files, color, chunk_frames=2,
+                                        device="cpu")
     ref = dataset.load_batch(files, color)
     assert got.files == files and isinstance(got.gray, torch.Tensor)
     np.testing.assert_array_equal(got.gray.numpy(), ref.gray)
@@ -133,8 +134,9 @@ def test_register_sequence_pipelined_matches_serial(frames, tmp_path):
     included) equal register_sequence_features_incre's."""
     files = _write(tmp_path, frames[0], "png")
     recs, gray_dev, gray_host = prefetch.register_sequence_pipelined(
-        files, _cfg(), "cpu", chunk_frames=2, keep_host=True)
-    ref = tfr.register_sequence_features_incre(frames[0], _cfg())
+        files, _cfg(), chunk_frames=2, keep_host=True, device="cpu")
+    ref = tfr.register_sequence_features_incre(frames[0], _cfg(),
+                                               device="cpu")
     assert recs == ref
     assert [r.ok for r in recs] == [True, True, True, False]
     np.testing.assert_array_equal(gray_dev.numpy(), frames[0])
@@ -154,12 +156,12 @@ def test_cuda_pipelined_ingest_matches_serial(frames, tmp_path, cuda_device):
     serial run's frames and records."""
     files = _write(tmp_path, frames[0], "png")
     recs, gray_dev, _ = prefetch.register_sequence_pipelined(
-        files, _cfg(), cuda_device, chunk_frames=2)
+        files, _cfg(), chunk_frames=2, device=cuda_device)
     assert gray_dev.device.type == "cuda"
     np.testing.assert_array_equal(gray_dev.cpu().numpy(), frames[0])
     ref = tfr.register_sequence_features_incre(frames[0], _cfg(),
                                                device=cuda_device)
     assert recs == ref
-    batch = prefetch.load_batch_pipelined(files, False, cuda_device,
-                                          chunk_frames=2)
+    batch = prefetch.load_batch_pipelined(files, False, chunk_frames=2,
+                                          device=cuda_device)
     assert torch.equal(batch.gray, gray_dev)

@@ -44,7 +44,7 @@ def test_phase_correlate_batch_matches_jax(shift, hw):
     r0, c0 = 150, 250
     a = base[r0:r0 + h, c0:c0 + w]
     b = base[r0 + dr:r0 + dr + h, c0 + dc:c0 + dc + w]
-    sx, sy, resp = tpc.phase_correlate_batch(a[None], b[None])
+    sx, sy, resp = tpc.phase_correlate_batch(a[None], b[None], device="cpu")
     jsx, jsy, jresp = jpc.phase_correlate_batch(a[None], b[None])
     assert sx.dtype == sy.dtype == resp.dtype == np.float32
     np.testing.assert_allclose(sx, jsx, rtol=0, atol=1e-3)
@@ -66,9 +66,10 @@ def test_batch_matches_per_pair():
     a = np.stack([base[100:250, 100:300]] * len(shifts))
     b = np.stack([base[100 + dr:250 + dr, 100 + dc:300 + dc]
                   for dr, dc in shifts])
-    sx, sy, resp = tpc.phase_correlate_batch(a, torch.as_tensor(b))
+    sx, sy, resp = tpc.phase_correlate_batch(a, torch.as_tensor(b),
+                                             device="cpu")
     for k in range(len(shifts)):
-        one = tpc.phase_correlate_batch(a[k:k + 1], b[k:k + 1])
+        one = tpc.phase_correlate_batch(a[k:k + 1], b[k:k + 1], device="cpu")
         np.testing.assert_allclose([sx[k], sy[k], resp[k]],
                                    [o[0] for o in one], rtol=0, atol=1e-4)
         assert (round(float(sx[k])), round(float(sy[k]))) == \

@@ -79,7 +79,7 @@ def test_register_sequence_phase_matches_jax(frames, pairs):
     ref = jreg.register_sequence_phase(frames, jcfg, pairs=pairs)
     jstats = dict(jreg.LAST_PHASE_STATS)
     got = treg.register_sequence_phase(frames, config_from_jax(jcfg),
-                                       pairs=pairs)
+                                       pairs=pairs, device="cpu")
     assert_phase_records_equal(got, ref)
     assert treg.LAST_PHASE_STATS == jstats
     ks = range(4) if pairs is None else pairs
@@ -103,7 +103,7 @@ def test_register_sequence_phase_whole_matches_jax(frames):
         assert np.abs(np.subtract(r.offset, t)).max() < 1
     with pytest.raises(NotImplementedError, match="item 22"):
         treg.register_sequence_phase_whole(frames, config_from_jax(jcfg),
-                                           mesh=object())
+                                           mesh=object(), device="cpu")
 
 
 def test_register_sequence_hybrid_matches_jax(low_contrast, monkeypatch):
@@ -113,7 +113,8 @@ def test_register_sequence_hybrid_matches_jax(low_contrast, monkeypatch):
     assert [r.ok for r in feat] == [True, False, False]
     ref = jreg.register_sequence_hybrid(low_contrast, jcfg)
     jstats = dict(jreg.LAST_PHASE_STATS)
-    got = treg.register_sequence_hybrid(low_contrast, config_from_jax(jcfg))
+    got = treg.register_sequence_hybrid(low_contrast, config_from_jax(jcfg),
+                                        device="cpu")
     assert_phase_records_equal(got, ref)
     # the phase fallback saw only the failed pairs, and registered them;
     # the feature-ok pair keeps its feature record
@@ -152,10 +153,10 @@ def test_chunked_phase_batches_give_the_same_records(frames, monkeypatch):
     configuration."""
     frames, _ = frames
     cfg = config_from_jax(_jcfg("phase_incre"))
-    ref = treg.register_sequence_phase(frames, cfg)
+    ref = treg.register_sequence_phase(frames, cfg, device="cpu")
     stats = dict(treg.LAST_PHASE_STATS)
     monkeypatch.setattr(treg, "PHASE_BATCH_BYTES", 1)
-    got = treg.register_sequence_phase(frames, cfg)
+    got = treg.register_sequence_phase(frames, cfg, device="cpu")
     assert_phase_records_equal(got, ref, subpix_atol=1e-4)
     assert treg.LAST_PHASE_STATS == stats
 

@@ -109,10 +109,12 @@ def test_replay_matches_jax(case):
 
 
 def test_register_sequence_matches_replay(case):
-    recs = tfr.register_sequence_features_incre(case["frames"], case["cfg"])
+    recs = tfr.register_sequence_features_incre(case["frames"], case["cfg"],
+                                                device="cpu")
     ref = tfr.replay_from_pool(case["tpool"], 3, (H, W), case["cfg"])
     assert recs == ref
     cfg = case["cfg"].replace(features=dataclasses.replace(
         case["cfg"].features, upright=False))
     # auto_upright: the upright pool registers every pair, no fallback
-    assert tfr.register_sequence_features_incre(case["frames"], cfg) == ref
+    assert tfr.register_sequence_features_incre(case["frames"], cfg,
+                                                device="cpu") == ref
