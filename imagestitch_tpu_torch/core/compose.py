@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..config import StitchConfig
+from ..device import resolve_device
 from ..ops.fusion import blend
 
 
@@ -118,17 +119,6 @@ def plan_compose(offsets: Sequence[Tuple[int, int]],
             steps.append(("fuse", i, (r, c), (rr0, rc0),
                           (rr1 - rr0, rc1 - rc0)))
     return placement, steps, pairwise
-
-
-def resolve_device(device, caller: str) -> torch.device:
-    """``device`` as a torch.device; a CUDA device without CUDA raises,
-    naming ``device='cpu'`` (no entry point falls back to the CPU)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"{caller}(device={str(device)!r}): "
-                           f"torch.cuda.is_available() is False; pass "
-                           f"device='cpu' to run on the CPU")
-    return device
 
 
 def compose(images, offsets: Sequence[Tuple[int, int]], cfg: StitchConfig,

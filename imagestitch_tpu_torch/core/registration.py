@@ -25,8 +25,8 @@ import numpy as np
 import torch
 
 from ..config import StitchConfig, direction_increase, max_roi_scale
+from ..device import resolve_device
 from ..ops import phase_corr, roi
-from .compose import resolve_device
 
 
 @dataclasses.dataclass
@@ -61,7 +61,8 @@ def pad_indices(idx: np.ndarray) -> Tuple[np.ndarray, int]:
 def _as_images(images, device, caller: str) -> torch.Tensor:
     """An (N, H, W) batch as a tensor: a tensor stays where it lies, numpy
     frames go to ``device`` (a CUDA device without CUDA raises, naming
-    ``device='cpu'``)."""
+    ``device='cpu'``).  ``device`` applies to numpy frames only, as in
+    ``compose``: a caller moves a tensor itself (``Stitcher.register``)."""
     if isinstance(images, torch.Tensor):
         return images
     return torch.as_tensor(images).to(resolve_device(device, caller))
@@ -304,7 +305,7 @@ def register_sequence_phase_whole(images, cfg: StitchConfig, mesh=None,
     n, h, w = images.shape
     if n < 2:
         return []
-    hp =phase_corr.optimal_dft_size(2 * h)
+    hp = phase_corr.optimal_dft_size(2 * h)
     wp = phase_corr.optimal_dft_size(2 * w)
     sx, sy, resp = _phase_whole(images, hp, wp)
     out: List[PairRegistration] = []
@@ -332,7 +333,7 @@ def register_sequence_hybrid(images, cfg: StitchConfig, device="cuda"
     """
     from . import feature_registration
     images = _as_images(images, device, "register_sequence_hybrid")
-    feat =feature_registration.register_sequence_features_incre(images, cfg)
+    feat = feature_registration.register_sequence_features_incre(images, cfg)
     failed = [k for k, r in enumerate(feat) if not r.ok]
     if not failed:
         return feat

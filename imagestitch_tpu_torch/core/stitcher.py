@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..config import StitchConfig
+from ..device import resolve_device
 from ..io import codec, dataset
 from ..utils.records import SequenceReport, print_and_write
 from . import compose as compose_mod
@@ -77,7 +78,7 @@ class Stitcher:
             raise NotImplementedError("a device mesh is not ported yet "
                                       "(ROADMAP Queue 1 item 22)")
         check_supported(cfg)
-        self.device = compose_mod.resolve_device(device, "Stitcher")
+        self.device = resolve_device(device, "Stitcher")
         self.cfg = cfg
         self.checkpoint_dir = checkpoint_dir
         self._direction = cfg.direction
@@ -88,7 +89,8 @@ class Stitcher:
     # -- registration ------------------------------------------------------
 
     def register(self, gray) -> List[registration.PairRegistration]:
-        """Register all adjacent pairs of an (N, H, W) grayscale batch."""
+        """Register all adjacent pairs of an (N, H, W) grayscale batch on
+        the Stitcher's device (a tensor elsewhere is moved there)."""
         cfg = self.cfg.replace(direction=self._direction)
         registrar = {
             "phase_incre": registration.register_sequence_phase,
@@ -99,7 +101,7 @@ class Stitcher:
         }.get(cfg.registration)
         if registrar is None:
             raise ValueError(cfg.registration)
-        recs = registrar(gray, cfg, device=self.device)
+        recs = registrar(self._to_device(gray), cfg, device=self.device)
         self._after_register(recs)
         return recs
 

@@ -38,8 +38,8 @@
 //    for each accumulator element; invalid train rows count as 3.4e38; each
 //    thread pushes its columns in ascending order with strict '<' into a
 //    running (d0, i0, d1) per row (first-index ties, d1 = d0 on exact ties),
-//    with selects and no branch (a branchy push, whose lanes diverge, took a
-//    third of the kernel's time);
+//    with selects and no branch (a branchy push, whose lanes diverge, was
+//    markedly slower);
 //  * the 4 threads of a quad merge by shuffles and the 4 warps of a row band
 //    through shared memory with an index-aware rule (merge below), which is
 //    exact and order-free, so the result is deterministic;
@@ -49,11 +49,10 @@
 //    merge kernel folds the splits with the same rule and, for K3, reads
 //    the matched train coordinates at the final i0.  S = 1 writes the
 //    outputs directly.
-// What bounds it now: not the MMAs.  Without them the kernel keeps about
-// two thirds of its time: the fragment loads, the B split, the ring's
-// barriers and the epilogue, issued by two warps a scheduler; a wgmma
-// version of this design was barely faster (PERF.md; measured with
-// scripts/torch_matcher_ab.py).
+// What bounds it now: not the MMAs.  Without them the kernel keeps most of
+// its time: the fragment loads, the B split, the ring's barriers and the
+// epilogue, issued by two warps a scheduler; a wgmma version of this
+// design was barely faster (PERF.md section 6).
 // With no valid train row a query gets d0 = d1 = 3.4e38 and i0 = 0, the
 // argmin of an all-masked row.
 #include <cuda_runtime.h>

@@ -19,7 +19,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core.compose import resolve_device
+from ..device import resolve_device
 from . import dataset
 
 

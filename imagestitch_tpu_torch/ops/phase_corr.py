@@ -22,6 +22,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..device import resolve_device
+
 
 def optimal_dft_size(n: int) -> int:
     """Smallest 5-smooth integer >= n (cv2.getOptimalDFTSize semantics)."""
@@ -100,10 +102,10 @@ def phase_correlate_batch(a, b, device="cuda"
     a, b: ``(P, h, w)`` arrays or tensors (any real dtype, cast to float32):
     a tensor stays where it lies, numpy goes to ``device`` (the card unless
     the caller passes ``device="cpu"``; without CUDA the card raises).
+    ``device`` applies to numpy only.
     Returns host arrays ``(shift_x, shift_y, response)`` of shape ``(P,)``
     with cv2's (x=col, y=row) convention.
     """
-    from ..core.compose import resolve_device
     a, b = (x if isinstance(x, torch.Tensor) else torch.as_tensor(x).to(
         resolve_device(device, "phase_correlate_batch")) for x in (a, b))
     a, b = a.to(torch.float32), b.to(torch.float32)

@@ -23,6 +23,7 @@ from imagestitch_tpu_torch.core import feature_registration as tfr
 from imagestitch_tpu_torch.core import registration as treg
 from imagestitch_tpu_torch.io import codec, prefetch
 from imagestitch_tpu_torch.ops import phase_corr as tpc
+from test_torch_device import no_cuda  # noqa: F401 (a fixture)
 from test_torch_jax_chain import two_threads
 
 INGEST = ("pooled_features_pipelined", "load_batch_pipelined",
@@ -32,11 +33,6 @@ INGEST = ("pooled_features_pipelined", "load_batch_pipelined",
 @pytest.fixture(autouse=True, scope="module")
 def _two_threads():
     yield from two_threads()
-
-
-@pytest.fixture
-def no_cuda(monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
 def _frames(n=3, h=48, w=64):
@@ -78,6 +74,31 @@ def test_tensors_stay_where_they_lie(no_cuda):
     ref = tpc.phase_correlate_batch(frames[:2], frames[:2], device="cpu")
     for g, r in zip(out, ref):
         np.testing.assert_array_equal(g, r)
+
+
+def test_stitcher_registers_on_its_device(monkeypatch):
+    """``Stitcher.register`` moves a tensor that lies elsewhere to the
+    Stitcher's device before its registrar sees it (the registrars leave a
+    tensor where it lies).  The meta device stands in for the card."""
+    registrars = {"phase_incre": "register_sequence_phase",
+                  "phase": "register_sequence_phase_whole",
+                  "feature_incre": "register_sequence_features_incre",
+                  "feature": "register_sequence_features",
+                  "hybrid": "register_sequence_hybrid"}
+    seen = {}
+
+    def recorder(registration):
+        def registrar(images, cfg, device):
+            seen[registration] = (images.device, device)
+            return []
+        return registrar
+
+    meta = torch.device("meta")
+    for registration, name in registrars.items():
+        monkeypatch.setattr(treg, name, recorder(registration))
+        Stitcher(_cfg(registration), device="meta").register(
+            torch.as_tensor(_frames()))
+    assert seen == dict.fromkeys(registrars, (meta, meta))
 
 
 def _write(tmp_path, frames):
