@@ -19,8 +19,10 @@ Phases, one line of output each:
                 once, over 3.35 TB/s) and, where one PyTorch call
                 computes the same function, that call's time:
                 K1 in one call over the four octave bands of a 1936x2584
-                frame's atlas (as the fused pool calls it) and K4 per
-                octave (both bit-equal to their plain versions), K2 on
+                frame's atlas (as the fused pool calls it) and K4 in one
+                call over the same bands at the score-map pool's budgets
+                (every slot and raw value bit-equal to the plain version;
+                its full-map mode per octave bit-equal too), K2 on
                 that frame's 11,616 candidates, K3 on 16 pairs x 4 configs
                 x 1024 x 1024 x 128, K5 on 1024 x 1024 x 128 (the oriented
                 mini pool; its own entry "at_1024" in K5's record, faster
@@ -50,7 +52,8 @@ Phases, one line of output each:
                     one for every pair of the sequence and one for the
                     retry.
                 Each path: every registered pair within 1 px of the truth,
-                kernel run == plain run, each of its kernels launched.
+                kernel run == plain run, each of its kernels launched (K4
+                once a frame of the score-map pool).
   5. files    — the user's workflow, PNG files on disk to panoramas on
                 disk: the same 11 frames in BGR color (seeds 7 and 99,
                 utils/synthetic.color_sequence) written as PNG into
@@ -88,6 +91,10 @@ Phases, one line of output each:
                 CPU's; panoramas equal the CPU run's; (h), (i) launch no
                 kernel, (j) K1-K4.  Then one line of the phase searches'
                 device times (CUDA events), attempts and dispatches.
+  7. pool split — (b)'s score-map pool once more: its device ms a frame
+                by stage (torch.profiler, tools/torch_pool_split.py) and
+                the card's busy share; last, because the profiler slows
+                the process's later CUDA calls.
 Then the smoke's total seconds, one JSON line with the per-kernel record
 and, last, the device line.
 Any failed check raises: the exit code is nonzero and no result line is
@@ -246,6 +253,7 @@ def main():
     from imagestitch_tpu_torch.core import stream_out
     from imagestitch_tpu_torch.io import codec, dataset, native_loader
     from imagestitch_tpu_torch.io.dataset import ImageBatch
+    from imagestitch_tpu_torch.ops.features import detect
     from imagestitch_tpu_torch.ops.kernels import describe as kdesc
     from imagestitch_tpu_torch.ops.kernels import doh as kdoh
     from imagestitch_tpu_torch.ops.kernels import matcher as kmatch
@@ -347,8 +355,8 @@ def main():
                             bound_by=bound_by, library_ms=library_ms,
                             **extra))
 
-    # K1 and K4: the four octaves of frame 0, as the pools call them: K1 in
-    # one call over the octave bands of the frame's atlas, K4 per octave
+    # K1 and K4: the four octaves of frame 0, as the pools call them: each
+    # in one call over the octave bands of the frame's atlas
     spacing = 2.0 ** (1.0 / dparams.n_octave_layers)
     octs, core, bands = freg.octave_atlas(gray[0], dparams)
     octaves = [(xo.contiguous(), bo) for _, xo, bo in octs]
@@ -378,19 +386,49 @@ def main():
            4 * px + sum(16 * h * rc for _, h, _, _, rc in bands))
     wrapper_us = {"K1": host_us(torch, lambda: k1(True))}
 
-    k4 = lambda use: [kdoh.doh_score_map(x, border=bo, use_kernel=use, **taps)
-                      for x, bo in octaves]
-    err4, live4 = 0.0, 0
-    for (sk, rk), (sp, rp) in zip(k4(True), k4(False)):
-        err4 = max(err4, float((sk - sp).abs().max()),
-                   float((rk - rp).abs().max()))
-        live4 += int((sk > 0).sum())
-    if err4 != 0.0:
-        raise AssertionError(f"doh_score_map: not bit-equal, max err {err4}")
+    # K4: one call over the same bands at the score-map pool's budgets (the
+    # 6,144 slots of paths (b) and (c)), every slot and raw value bit-equal;
+    # then its full-map mode (doh_score_map) per octave, bit-equal too
+    kks = [min(detect.octave_budget(FeatureConfig().pool_keypoints, o,
+                                    dparams.octave_topk_decay), bh * bw)
+           for o, (_, bh, bw, _, _) in enumerate(bands)]
+    k4 = lambda use: kdoh.doh_score_map_octaves(core, bands, kks,
+                                                use_kernel=use, **taps)
+    for (sk, ik, rk), (sp, ip, rp) in zip(k4(True), k4(False)):
+        if not (torch.equal(sk, sp) and torch.equal(ik, ip)
+                and torch.equal(rk, rp)):
+            raise AssertionError("doh_score_map_octaves: not bit-equal to "
+                                 "the plain version")
+    k4_launch = lambda: kdoh._launch_score_map(core, bands, full_map=False,
+                                               **taps)
+    _, _, keys4, counts4 = k4_launch()
+    *survivors, total4 = counts4.tolist()
+    full4 = lambda use: [kdoh.doh_score_map(x, border=bo, use_kernel=use,
+                                            **taps) for x, bo in octaves]
+    live4 = []
+    for (sk, rk), (sp, rp) in zip(full4(True), full4(False)):
+        if not (torch.equal(sk, sp) and torch.equal(rk, rp)):
+            raise AssertionError("doh_score_map: not bit-equal to the plain "
+                                 "version")
+        live4.append(int((sp > 0).sum()))
+    if survivors != live4:
+        raise AssertionError(f"doh_score_map_octaves: {survivors} survivors,"
+                             f" the plain maps hold {live4}")
+    k4_order = lambda: kdoh.top_k_from_survivors(
+        keys4[:total4], survivors, [bh * bw for _, bh, bw, _, _ in bands],
+        kks)
+    # bytes: the bands read and the raw response written once, a key per
+    # survivor, the counts
     record("doh_score_map", "doh_score_map.cu",
-           "imagestitch_tpu/ops/pallas/doh.py:337", err4,
-           cuda_ms(torch, lambda: k4(True)),
-           cuda_ms(torch, lambda: k4(False), iters=5), doh_ops, 12 * px)
+           "imagestitch_tpu/ops/pallas/doh.py:337", 0.0,
+           cuda_ms(torch, k4_launch), cuda_ms(torch, lambda: k4(False),
+                                              iters=5), doh_ops,
+           8 * px + 8 * sum(survivors) + 4 * len(bands),
+           survivors=survivors, budgets=kks,
+           ordering_ms=cuda_ms(torch, k4_order),
+           call_ms=sorted(timed(torch, lambda: k4(True))[2]
+                          for _ in range(11))[5],
+           full_map_ms=cuda_ms(torch, lambda: full4(True)))
 
     # K2: every candidate of frame 0 from the atlas the pool builds
     _, _, _, atlas, r0, c0 = freg.select_candidates(gray[0], dparams)
@@ -539,6 +577,7 @@ def main():
            cuda_ms(torch, lambda: kws.window_colsum_plain(a6, r6, c6)),
            23 * k6 * 128, 512 * int(touched.sum()) + 8 * k6 + 4 * out6.numel(),
            cuda_ms(torch, bag_sum))
+    k4r = next(r for r in records if r["name"] == "doh_score_map")
     print("kernels: " + "; ".join(
         f"{r['name']} max_abs_err {r['max_abs_err']:.3g}, {r['ms']:.4f} ms "
         f"(plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms by "
@@ -560,8 +599,13 @@ def main():
         f"{k5[2]['argmin_tie_gap_fp64']:.3g}"
         + f"; K1 live slots {live_n}, bit-equal, its bit-equal ceiling "
         f"{2 * records[0]['bound_ms']:.4f} ms (no FMA: half the FP32 rate); "
-        f"K4 live {live4}, bit-equal; wrapper host time a call (enqueue, "
-        f"host clock) K1 {wrapper_us['K1']:.1f} us, K2 "
+        f"K4 in one call over the 4 bands at budgets {k4r['budgets']}: "
+        f"survivors {k4r['survivors']}, every slot and raw value bit-equal, "
+        f"the survivors' ordering {k4r['ordering_ms']:.4f} ms (events), the "
+        f"whole call {k4r['call_ms']:.4f} ms (host clock, median of 11, "
+        f"count readback included), full-map mode per octave "
+        f"{k4r['full_map_ms']:.4f} ms, bit-equal; wrapper host time a call "
+        f"(enqueue, host clock) K1 {wrapper_us['K1']:.1f} us, K2 "
         f"{wrapper_us['K2']:.1f} us; K3 "
         f"argmin ties {ties3}; K5 argmin ties "
         f"{sum(r['argmin_ties'] for r in k5)}; cdist + topk "
@@ -626,22 +670,23 @@ def main():
     rep = run_path("(a) feature_incre default", base.replace(
         features=FeatureConfig()), 11, [(0, 10), (10, 11)],
         {"doh_select": 11, "describe_atlas": 11, "top2_l2_coords": None,
-         "doh_score_map": 8, "top2_l2": 0})
+         "doh_score_map": 2, "top2_l2": 0})
     if sorted(set(rep.directions[:9])) != [1, 2, 3] or \
             not rep.confidences[9] > 0:
         raise AssertionError(f"(a): directions {rep.directions}, "
                              f"confidences {rep.confidences}")
     run_path("(b) feature_incre auto_upright=False", base.replace(
         features=FeatureConfig(auto_upright=False)), 10, [(0, 10)],
-        {"doh_score_map": 40, "top2_l2_coords": None, "doh_select": 0})
+        {"doh_score_map": 10, "top2_l2_coords": None, "doh_select": 0})
     run_path("(c) feature_incre upright score map", base.replace(
         features=FeatureConfig(upright=True, fused_select=False)), 10,
-        [(0, 10)], {"doh_score_map": 40, "top2_l2_coords": None,
+        [(0, 10)], {"doh_score_map": 10, "top2_l2_coords": None,
                     "doh_select": 0})
     run_path("(d) feature default", base.replace(
         registration="feature", features=FeatureConfig()), 11,
         [(0, 10), (10, 11)],
-        {"top2_l2": 2, "doh_select": 11, "describe_atlas": 11})
+        {"top2_l2": 2, "doh_select": 11, "describe_atlas": 11,
+         "doh_score_map": 2})
 
     # ---- 5. files to files through the CLI, StitchConfig() defaults
     t0 = time.perf_counter()
@@ -651,7 +696,7 @@ def main():
     t_data = time.perf_counter() - t0
     outputs = ["stitching_result_1_1.png", "stitching_result_1_2.png"]
     expect = {"doh_select": 11, "describe_atlas": 11, "top2_l2_coords": None,
-              "doh_score_map": None, "top2_l2": 0}
+              "doh_score_map": 2, "top2_l2": 0}
 
     def phase_times(label, cfg, res):
         """The path's phases once more, one at a time: decode, H2D,
@@ -800,11 +845,11 @@ def main():
               f"values differ, by at most {int(diff.max())}")
         res_g, cfg_g = run_files("(g) CLI --gray --stream-output",
                                  ["--gray", "--stream-output"])
-        gray = dataset.load_batch(files[:10], False).gray
-        ref = compose_mod.compose(torch.as_tensor(gray, device=dev),
+        gray_g = dataset.load_batch(files[:10], False).gray
+        ref = compose_mod.compose(torch.as_tensor(gray_g, device=dev),
                                   res_g[0].offsets, cfg_g)
         if not np.array_equal(ref, compose_mod.compose(
-                gray, res_g[0].offsets, cfg_g, device="cpu")):
+                gray_g, res_g[0].offsets, cfg_g, device="cpu")):
             raise AssertionError("(g): the device gray panorama differs from "
                                  "the CPU composer's")
         diff = np.abs(res_g[0].image.astype(np.int16) - ref.astype(np.int16))
@@ -939,7 +984,7 @@ def main():
     cfg = base.replace(registration="hybrid")
     st, res, wall, launches = run_phase_path(
         label, cfg, {"doh_select": 11, "describe_atlas": 11,
-                     "top2_l2_coords": None, "doh_score_map": 8,
+                     "top2_l2_coords": None, "doh_score_map": 2,
                      "top2_l2": 0, "window_colsum": 0},
         phase_segments)
     feat = freg.register_sequence_features_incre(pgray, cfg)
@@ -967,6 +1012,24 @@ def main():
                     f"{treg.LAST_PHASE_STATS['dispatches']} dispatches")
     print("phase searches (events, host replay included): "
           + "; ".join(searches))
+
+    # ---- 7. the score-map pool's device time a frame, by stage (path
+    # (b)'s pool).  Last: after torch.profiler has traced the card, every
+    # later CUDA call of this process runs slower (the paths' walls of
+    # phases 5 and 6 rose by up to 40% when this ran before them)
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tools"))
+    import torch_pool_split
+    pool_b = lambda: freg.pool_features(
+        gray[:10], dparams, sp_or, max_pool=FeatureConfig().pool_keypoints)
+    pool_b()
+    wall = sorted(timed(torch, pool_b)[2] for _ in range(5))[2]
+    device_ms, split = torch_pool_split.device_split(pool_b, 10)
+    print("pool split ((b)'s oriented score-map pool, 10 frames, "
+          "torch.profiler): device ms a frame " + ", ".join(
+              f"{k} {v:.4f}" for k, v in split.items())
+          + f"; device {device_ms:.2f} ms, host wall {wall:.2f} ms (median "
+          f"of 5, unprofiled), busy share {device_ms / wall:.3f}")
 
     for r in records:
         r["launches"] = total[r["name"]]

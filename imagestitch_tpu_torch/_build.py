@@ -32,14 +32,15 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 P = ctypes.c_void_p
 I = ctypes.c_int
 F = ctypes.c_float
+L = ctypes.c_longlong
 #: C signature of every exported launcher (all return cudaGetLastError())
 SIGNATURES = {
     # atlas, pitch, n_oct, bands*, threshold, n_scales, radii*, s4*, taps*,
     # sc, col, dr, dc, scratch, scratch_entries, stream
     "doh_select_launch": [P, I, I, P, F, I, P, P, P, P, P, P, P, P, I, P],
-    # img, h, w, threshold, border, n_scales, radii*, s4*, taps*,
-    # score, raw, stream
-    "doh_score_map_launch": [P, I, I, F, I, I, P, P, P, P, P, P],
+    # atlas, pitch, n_bands, bands*, threshold, n_scales, radii*, s4*,
+    # taps*, raw, score (null: compact), keys, key_capacity, counts, stream
+    "doh_score_map_launch": [P, I, I, P, F, I, P, P, P, P, P, P, L, P, P],
     # atlas, ah, aw, r0, c0, k, gw, extended, out, stream
     "describe_launch": [P, I, I, P, P, I, P, I, P, P],
     # da, db, valid_b, rows_b, cols_b, batch, ka, kb, d, splits, scratch,

@@ -18,8 +18,9 @@ Port of ``imagestitch_tpu/core/feature_registration.py``:
 Pools, per frame (``pool_features``): the fused per-row-select pool (K1
 over the octave bands of the pyramid atlas, one call a frame, and K2 over
 the same atlas) for upright SURF with ``fused_select``;
-otherwise the score-map pool (K4 per octave, exact top-k, sub-pixel
-refinement, global top-k, dense describe), upright or oriented.
+otherwise the score-map pool (K4 once a frame over the same bands, each
+octave's exact top-k from the survivors it compacts, sub-pixel refinement,
+global top-k, dense describe over the atlas), upright or oriented.
 
 Slice of this port: SURF with the mode vote, no strict-ROI detection and no
 enhancement; ``check_supported`` raises for the rest.
@@ -200,39 +201,43 @@ def detect_describe_image(img: torch.Tensor, params: detect.DetectParams,
     return rows, cols, scores, descs
 
 
-def _top_k_stable(x: torch.Tensor, k: int):
-    """The ``k`` largest of a 1-D tensor, ties by lower index first (the
-    order of lax.top_k, and of approx_max_k on the CPU)."""
-    s, i = torch.sort(x, descending=True, stable=True)
-    return s[:k], i[:k]
+def launch_score_map(img: torch.Tensor, max_kp: int,
+                     params: detect.DetectParams, use_kernels: bool = True):
+    """Start K4 on one (H, W) frame for ``score_map_pool``: the frame's
+    octave atlas and one ``doh_score_map_octaves`` call over its bands at
+    the octave budgets.  Returns (atlas, bands, finish); ``finish()`` gives
+    each band's (top scores, flat indices, raw)."""
+    spacing = 2.0 ** (1.0 / max(params.n_octave_layers, 1))
+    _, atlas, bands = octave_atlas(img, params)
+    kks = [min(detect.octave_budget(max_kp, o, params.octave_topk_decay),
+               h * w) for o, (_, h, w, _, _) in enumerate(bands)]
+    finish = kdoh.launch_score_map_octaves(
+        atlas, bands, kks, threshold=params.threshold,
+        n_scales=params.n_octave_layers, base_sigma=params.base_sigma,
+        spacing=spacing, use_kernel=use_kernels)
+    return atlas, bands, finish
 
 
 def score_map_pool(img: torch.Tensor, max_kp: int,
                    params: detect.DetectParams,
                    sparams: describe.DescribeParams,
-                   use_kernels: bool = True):
+                   use_kernels: bool = True, launched=None):
     """One (H, W) frame -> (rows, cols, scores, descs) score-map pool of
     ``max_kp`` slots (port of ``_detect_describe_image_pallas``).
 
-    Per octave: K4's NMS-masked score map and raw response, the top
-    ``octave_budget`` scores (an exact top-k where the TPU used
+    Per octave: the top ``octave_budget`` NMS scores of K4 (one call over
+    the frame's octave bands; an exact top-k where the TPU used
     approx_max_k), sub-pixel refinement on the raw response.  Then the
     global top-``max_kp`` over all octaves' candidates and ONE describe
-    over the pyramid atlas, upright or oriented.  Slots with score <= 0 are
-    empty.
+    over the same pyramid atlas, upright or oriented.  Slots with score
+    <= 0 are empty.  ``launched``: this frame's ``launch_score_map``, when
+    the caller started it ahead.
     """
-    spacing = 2.0 ** (1.0 / max(params.n_octave_layers, 1))
+    atlas, bands, finish = launched or launch_score_map(img, max_kp, params,
+                                                        use_kernels)
     cand = []
-    octave_imgs = []
-    for o, xo, bo in octaves(img, params):
-        ho, wo = xo.shape
-        score, raw = kdoh.doh_score_map(
-            xo, threshold=params.threshold, n_scales=params.n_octave_layers,
-            base_sigma=params.base_sigma, border=bo, spacing=spacing,
-            use_kernel=use_kernels)
-        kk = min(detect.octave_budget(max_kp, o, params.octave_topk_decay),
-                 ho * wo)
-        flat_s, flat_i = _top_k_stable(score.reshape(-1), kk)
+    for o, ((flat_s, flat_i, raw), (_, _, wo, _, _)) in enumerate(
+            zip(finish(), bands)):
         r = flat_i // wo
         c = flat_i % wo
         if params.subpixel:
@@ -244,16 +249,16 @@ def score_map_pool(img: torch.Tensor, max_kp: int,
         f = float(1 << o)
         cand.append((ro * f + (f - 1) / 2, co * f + (f - 1) / 2, flat_s, ro,
                      co, torch.full_like(r, o)))
-        octave_imgs.append(xo)
     rows, cols, scores, r_loc, c_loc, oct_ids = (
         torch.cat([t[i] for t in cand]) for i in range(6))
     if rows.shape[0] < max_kp:
         pad = lambda a: F.pad(a, (0, max_kp - a.shape[0]))
         rows, cols, scores, r_loc, c_loc, oct_ids = (
             pad(a) for a in (rows, cols, scores, r_loc, c_loc, oct_ids))
-    top_s, top_i = _top_k_stable(scores, max_kp)
-    descs = describe.describe_from_pyramid(
-        octave_imgs, r_loc[top_i], c_loc[top_i], oct_ids[top_i], sparams)
+    top_s, top_i = kdoh._top_k_stable(scores, max_kp)
+    descs = describe.describe_from_atlas(
+        atlas, [b[0] for b in bands], r_loc[top_i], c_loc[top_i],
+        oct_ids[top_i], sparams)
     return rows[top_i], cols[top_i], top_s, descs
 
 
@@ -274,13 +279,20 @@ def pool_features(images: torch.Tensor, dparams: detect.DetectParams,
     P = structural capacity); anything else the score-map pool (K4,
     P = ``max_pool``), as the JAX package's per-frame dispatch does on the
     TPU (_pool_features_jit)."""
+    n = images.shape[0]
     if fused_select and _fused_select_ok(dparams, sparams):
-        one = lambda im: detect_describe_image(im, dparams, sparams,
-                                               use_kernels)
+        per = [detect_describe_image(images[i], dparams, sparams, use_kernels)
+               for i in range(n)]
     else:
-        one = lambda im: score_map_pool(im, max_pool, dparams, sparams,
-                                        use_kernels)
-    per = [one(images[i]) for i in range(images.shape[0])]
+        # K4 of frame i + 1 is enqueued before frame i's survivor counts are
+        # read back, so the card has work while the host waits for them
+        launch = lambda i: launch_score_map(images[i], max_pool, dparams,
+                                            use_kernels) if i < n else None
+        per, ahead = [], launch(0)
+        for i in range(n):
+            cur, ahead = ahead, launch(i + 1)
+            per.append(score_map_pool(images[i], max_pool, dparams, sparams,
+                                      use_kernels, launched=cur))
     return tuple(torch.stack([p[j] for p in per]) for j in range(4))
 
 

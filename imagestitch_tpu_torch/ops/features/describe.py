@@ -7,11 +7,12 @@ central-difference gradients, the Gaussian-weighted 4x4 subregion sums
 normalisation.  Oriented descriptors first estimate the cv2-SURF dominant
 orientation on a 29x29 patch (Haar responses on the radius-6 sample
 circle, sliding pi/3 window), then sample the 18x18 grid rotated by it
-bilinearly from that patch.  ``describe_from_pyramid`` / ``describe_batch``
-are the dense path (the score-map pool describes through them); the fused
-pool calls the atlas kernel (``ops/kernels/describe.py``), whose plain
-version is built from the helpers here.  SIFT and ORB are not ported yet
-(ROADMAP Queue 1 item 17).
+bilinearly from that patch.  ``describe_from_pyramid`` /
+``describe_from_atlas`` / ``describe_batch`` are the dense path (the
+score-map pool describes through ``describe_from_atlas``, over the atlas its
+K4 call read); the fused pool calls the atlas kernel
+(``ops/kernels/describe.py``), whose plain version is built from the
+helpers here.  SIFT and ORB are not ported yet (ROADMAP Queue 1 item 17).
 """
 from __future__ import annotations
 
@@ -295,7 +296,16 @@ def describe_from_pyramid(octave_images: Sequence[torch.Tensor],
                           params: DescribeParams) -> torch.Tensor:
     """Describe keypoints spread across octave images with ONE batched call
     over the ``pyramid_atlas``."""
-    atlas, offsets = pyramid_atlas(octave_images)
+    return describe_from_atlas(*pyramid_atlas(octave_images), r_loc, c_loc,
+                               octave_ids, params)
+
+
+def describe_from_atlas(atlas: torch.Tensor, offsets: Sequence[int],
+                        r_loc: torch.Tensor, c_loc: torch.Tensor,
+                        octave_ids: torch.Tensor,
+                        params: DescribeParams) -> torch.Tensor:
+    """``describe_from_pyramid`` over an atlas already built: octave ``o``'s
+    image starts at atlas row ``offsets[o]``."""
     offs = torch.tensor(offsets, dtype=torch.float32)
     if atlas.is_cuda:                    # from pinned memory: no host wait
         offs = offs.pin_memory().to(atlas.device, non_blocking=True)

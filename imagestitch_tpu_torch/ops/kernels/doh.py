@@ -2,15 +2,19 @@
 
 Ports of ``imagestitch_tpu/ops/pallas/doh.py::doh_select`` (K1: response +
 NMS + sub-pixel + per-row top-R, CUDA in ``csrc/doh_select.cu``) and
-``::doh_score_map`` (K4: response + NMS written as a full score map plus
-the raw response, CUDA in ``csrc/doh_score_map.cu``); both share the
-response stage ``csrc/doh_common.cuh``.  ``doh_select_plain`` and
-``doh_score_map_plain`` are the same functions in plain PyTorch.  Each
-wrapper launches its kernel for a CUDA tensor (or the plain version when
-``use_kernel`` is False) and takes the plain version for a CPU tensor.
-K1's wrapper, ``doh_select_octaves``, takes all octaves of a frame as
-bands of the pyramid atlas and covers them in one call (a tile kernel and
-a merge kernel); ``doh_select`` is its one-octave case.
+``::doh_score_map`` (K4: response + NMS and the raw response, CUDA in
+``csrc/doh_score_map.cu``); both share the response stage
+``csrc/doh_common.cuh``.  ``doh_select_plain`` and ``doh_score_map_plain``
+are the same functions in plain PyTorch.  Each wrapper launches its kernel
+for a CUDA tensor (or the plain version when ``use_kernel`` is False) and
+takes the plain version for a CPU tensor.  Both kernels take all octaves
+of a frame as bands of the pyramid atlas and cover them in one call:
+``doh_select_octaves`` (a tile kernel and a merge kernel; ``doh_select`` is
+its one-octave case) and ``doh_score_map_octaves`` (the score-map pool's
+per-octave top-k: the kernel compacts the bands' NMS survivors into one
+list, and ``top_k_from_survivors`` orders them, in one sort, as a stable
+sort of each full score map would).  ``doh_score_map``, the full score
+map of one image, is the kernel's full-map mode.
 
 Semantics kept from the Pallas kernels:
   * the image is edge-padded; the response is evaluated on rows -1..H and
@@ -35,12 +39,14 @@ from ..features.detect import (_corr_cols, _corr_rows, _edge_pad,
 
 #: calls of the K1 kernel (one per frame) since the counter was last set to 0
 LAUNCHES = 0
-#: launches of the K4 kernel since the counter was last set to 0
+#: calls of the K4 kernel (one per frame, or one per ``doh_score_map``)
+#: since the counter was last set to 0
 SCORE_MAP_LAUNCHES = 0
 MAX_SCALES = 4      # csrc/doh_common.cuh kMaxScales
 MAX_RADIUS = 10     # csrc/doh_common.cuh kMaxRadius
 MAX_CANDS = 8       # csrc/doh_select.cu kMaxCands
-MAX_OCTAVES = 8     # csrc/doh_select.cu kMaxOctaves
+#: csrc/doh_select.cu kMaxOctaves, csrc/doh_score_map.cu kMaxBands
+MAX_OCTAVES = 8
 TILE_VCOLS = 256    # csrc/doh_common.cuh kVW
 
 
@@ -156,22 +162,21 @@ def tile_cols(halo: int) -> int:
     return TILE_VCOLS - 2 - 2 * halo
 
 
-def _check_bands(atlas: torch.Tensor, bands):
+def _check_bands(atlas: torch.Tensor, bands, name: str):
+    """Raise for an atlas or band table (row_off, h, w, ...) the kernels do
+    not take."""
     if atlas.dim() != 2:
-        raise ValueError(f"doh_select expects a 2-D atlas, got "
+        raise ValueError(f"{name} expects a 2-D atlas, got "
                          f"{tuple(atlas.shape)}")
     if not 1 <= len(bands) <= MAX_OCTAVES:
-        raise ValueError(f"doh_select: {len(bands)} octaves, not in "
+        raise ValueError(f"{name}: {len(bands)} octaves, not in "
                          f"[1, {MAX_OCTAVES}]")
     ha, wa = atlas.shape
-    for row_off, h, w, _, r_cands in bands:
+    for row_off, h, w, *_ in bands:
         if not (row_off >= 0 and h >= 1 and w >= 1 and row_off + h <= ha
                 and w <= wa):
-            raise ValueError(f"doh_select: band rows {row_off}..{row_off + h}"
+            raise ValueError(f"{name}: band rows {row_off}..{row_off + h}"
                              f" x {w} columns outside the {ha}x{wa} atlas")
-        if not 1 <= r_cands <= MAX_CANDS:
-            raise ValueError(f"doh_select: r_cands={r_cands} not in "
-                             f"[1, {MAX_CANDS}]")
 
 
 def _launch(atlas: torch.Tensor, bands, threshold: float, n_scales: int,
@@ -220,7 +225,11 @@ def doh_select_octaves(atlas: torch.Tensor, bands, threshold: float = 10.0,
     octave.
     """
     bands = [tuple(int(v) for v in b) for b in bands]
-    _check_bands(atlas, bands)
+    _check_bands(atlas, bands, "doh_select")
+    for *_, r_cands in bands:
+        if not 1 <= r_cands <= MAX_CANDS:
+            raise ValueError(f"doh_select: r_cands={r_cands} not in "
+                             f"[1, {MAX_CANDS}]")
     if atlas.is_cuda and use_kernel:
         if atlas.dtype != torch.float32:
             raise TypeError(f"doh_select kernel needs float32, got "
@@ -265,23 +274,169 @@ def doh_score_map_plain(image: torch.Tensor, threshold: float = 10.0,
     return _nms_score(resp, border, threshold), resp[1:1 + h, 1:1 + w]
 
 
-def _launch_score_map(x: torch.Tensor, threshold: float, n_scales: int,
-                      base_sigma: float, border: int, spacing: float):
+def _top_k_stable(x: torch.Tensor, k: int):
+    """The ``k`` largest of a 1-D tensor, ties by lower index first (the
+    order of lax.top_k, and of approx_max_k on the CPU)."""
+    s, i = torch.sort(x, descending=True, stable=True)
+    return s[:k], i[:k]
+
+
+#: a survivor's key: band << 60 | (0x7FFFFFFF - bits(score)) << 29 | flat
+#: index (csrc/doh_score_map.cu); ascending keys are (band, score desc,
+#: index asc)
+INDEX_BITS = 29
+_INDEX_MASK = (1 << INDEX_BITS) - 1
+
+
+def survivor_keys(scores: torch.Tensor, index: torch.Tensor,
+                  band: int = 0) -> torch.Tensor:
+    """The int64 keys K4 writes for band ``band``'s NMS survivors (scores
+    > 0) at flat ``index``."""
+    bits = scores.to(torch.float32).view(torch.int32).to(torch.int64)
+    return ((band << 60) | ((0x7FFFFFFF - bits) << INDEX_BITS)
+            | index.to(torch.int64))
+
+
+def _zero_fill(scores: torch.Tensor, index: torch.Tensor, kk: int,
+               size: int):
+    """A band's ``n`` < ``kk`` survivors, ordered, followed by zeros at the
+    lowest non-survivor indices, ascending, up to ``kk`` slots: the order of
+    a stable sort's tied zeros.  They lie below ``kk + n``, as at most ``n``
+    survivors do."""
+    n = index.shape[0]
+    span = min(kk + n, size)
+    taken = torch.zeros(span + 1, dtype=torch.bool, device=index.device)
+    taken[index.clamp(max=span)] = True
+    idx = torch.arange(span, device=index.device)
+    fill = torch.sort(torch.where(taken[:span], size, idx)).values
+    return (torch.cat([scores, scores.new_zeros(kk - n)]),
+            torch.cat([index, fill[:kk - n]]))
+
+
+def top_k_from_survivors(keys: torch.Tensor, counts, sizes, kks):
+    """Each band's ``kk`` largest scores, in ``_top_k_stable``'s order over
+    its score map of ``size`` pixels, from the survivors' keys of every
+    band in any order (``counts`` of them in each band) -> per band (scores
+    float32 (kk,), flat indices int64 (kk,)).  One sort orders all bands."""
+    top = torch.sort(keys).values
+    score = (0x7FFFFFFF - ((top >> INDEX_BITS) & 0x7FFFFFFF)).to(
+        torch.int32).view(torch.float32)
+    index = top & _INDEX_MASK
+    out, s0 = [], 0
+    for n, size, kk in zip(counts, sizes, kks):
+        s, i = score[s0:s0 + min(n, kk)], index[s0:s0 + min(n, kk)]
+        out.append(_zero_fill(s, i, kk, size) if n < kk else (s, i))
+        s0 += n
+    return out
+
+
+def _launch_score_map(atlas: torch.Tensor, bands, threshold: float,
+                      n_scales: int, base_sigma: float, spacing: float,
+                      full_map: bool):
+    """One K4 launch over ``bands`` -> (raw, score, keys, counts): raw
+    atlas-shaped; full-map mode: score atlas-shaped, no keys or counts;
+    else keys (room for sum h * w int64) and counts (int32: each band's
+    survivors, then the keys written) on the device."""
     from ... import _build
     global SCORE_MAP_LAUNCHES
     radii, s4, table = _tap_tables(n_scales, base_sigma, spacing)
-    h, w = x.shape
-    score = torch.empty((h, w), dtype=torch.float32, device=x.device)
-    raw = torch.empty((h, w), dtype=torch.float32, device=x.device)
-    lib = _build.library()
-    err = lib.doh_score_map_launch(
-        x.data_ptr(), h, w, float(threshold), border, n_scales,
-        radii.ctypes.data, s4.ctypes.data, table.ctypes.data,
-        score.data_ptr(), raw.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    table_b = np.asarray([b[:4] for b in bands], np.int32)
+    dev = atlas.device
+    raw = torch.empty_like(atlas)
+    score = keys = counts = None
+    cap = sum(h * w for _, h, w, *_ in bands)
+    if full_map:
+        score = torch.empty_like(atlas)
+    else:
+        keys = torch.empty(cap, dtype=torch.int64, device=dev)
+        counts = torch.empty(len(bands) + 1, dtype=torch.int32,
+                             device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    err = _build.library().doh_score_map_launch(
+        atlas.data_ptr(), atlas.shape[1], len(bands), table_b.ctypes.data,
+        float(threshold), n_scales, radii.ctypes.data, s4.ctypes.data,
+        table.ctypes.data, raw.data_ptr(), ptr(score), ptr(keys), cap,
+        ptr(counts), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "doh_score_map")
     SCORE_MAP_LAUNCHES += 1
-    return score, raw
+    return raw, score, keys, counts
+
+
+def launch_score_map_octaves(atlas: torch.Tensor, bands, kk_per_band,
+                             threshold: float = 10.0, n_scales: int = 3,
+                             base_sigma: float = 1.2, spacing: float = 1.6,
+                             use_kernel: bool = True):
+    """Start ``doh_score_map_octaves``; returns a callable that finishes it.
+
+    On the kernel route the launch enqueues the survivor counts' copy to
+    pinned host memory, and the callable waits for that copy alone, so a
+    caller that launches the next frame before finishing this one never
+    leaves the card idle for the readback.  Other routes compute at once.
+    """
+    bands = [tuple(int(v) for v in b[:4]) for b in bands]
+    kks = [int(k) for k in kk_per_band]
+    _check_bands(atlas, bands, "doh_score_map")
+    if len(kks) != len(bands) or not all(
+            1 <= k <= h * w for k, (_, h, w, _) in zip(kks, bands)):
+        raise ValueError(f"doh_score_map: kk_per_band {kks} not in "
+                         f"[1, h * w] of the {len(bands)} bands")
+    if max(h * w for _, h, w, _ in bands) > 1 << INDEX_BITS or sum(
+            h * w for _, h, w, _ in bands) >= 1 << 31:
+        raise ValueError(f"doh_score_map: bands of more than 2^{INDEX_BITS}"
+                         f" pixels, or 2^31 in all")
+    if threshold < 0:
+        raise ValueError(f"doh_score_map: threshold {threshold} < 0 (an "
+                         f"empty slot's score is 0)")
+    if not (atlas.is_cuda and use_kernel):
+        out = []
+        for (r, h, w, b), kk in zip(bands, kks):
+            score, raw = doh_score_map_plain(atlas[r:r + h, :w], threshold,
+                                             n_scales, base_sigma, b, spacing)
+            out.append((*_top_k_stable(score.reshape(-1), kk), raw))
+        return lambda: out
+    if atlas.dtype != torch.float32:
+        raise TypeError(f"doh_score_map kernel needs float32, got "
+                        f"{atlas.dtype}")
+    raw, _, keys, counts = _launch_score_map(
+        atlas.contiguous(), bands, threshold, n_scales, base_sigma, spacing,
+        full_map=False)
+    host = torch.empty(len(bands) + 1, dtype=torch.int32, pin_memory=True)
+    host.copy_(counts, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(atlas.device))
+
+    def finish():
+        ready.synchronize()
+        *ns, total = host.tolist()
+        top = top_k_from_survivors(keys[:total], ns,
+                                   [h * w for _, h, w, _ in bands], kks)
+        return [(s, i, raw[r:r + h, :w])
+                for (s, i), (r, h, w, _) in zip(top, bands)]
+    return finish
+
+
+def doh_score_map_octaves(atlas: torch.Tensor, bands, kk_per_band,
+                          threshold: float = 10.0, n_scales: int = 3,
+                          base_sigma: float = 1.2, spacing: float = 1.6,
+                          use_kernel: bool = True
+                          ) -> List[Tuple[torch.Tensor, torch.Tensor,
+                                          torch.Tensor]]:
+    """The top ``kk`` NMS scores of every octave band of a frame.
+
+    ``atlas``: (Ha, Wa) float32 holding the octave images as bands (the
+    pyramid atlas); ``bands``: one (row_off, h, w, border, ...) per octave,
+    its image being ``atlas[row_off:row_off + h, :w]``; ``kk_per_band``:
+    slots per band, each in [1, h * w].  Returns per band (top scores
+    float32 (kk,), their flat indices int64 (kk,), the raw scale-max
+    response (h, w)), in the order of a stable descending sort of the
+    band's score map (``_top_k_stable``).  A CUDA atlas runs all bands in
+    one kernel call (the survivors compacted in the kernel, then ordered)
+    unless ``use_kernel`` is False; a CPU atlas runs the plain version per
+    band.
+    """
+    return launch_score_map_octaves(atlas, bands, kk_per_band, threshold,
+                                    n_scales, base_sigma, spacing,
+                                    use_kernel)()
 
 
 def doh_score_map(image: torch.Tensor, threshold: float = 10.0,
@@ -292,15 +447,17 @@ def doh_score_map(image: torch.Tensor, threshold: float = 10.0,
     """(H, W) image -> (score, raw): the NMS-masked DoH score map (0 where
     suppressed, on the border or under the threshold) and the raw scale-max
     response for sub-pixel refinement, each (H, W) float32.  A CUDA tensor
-    runs the CUDA kernel unless ``use_kernel`` is False; a CPU tensor runs
-    the plain version.
+    runs the kernel's full-map mode on its one band unless ``use_kernel``
+    is False; a CPU tensor runs the plain version.
     """
     if image.dim() != 2:
         raise ValueError(f"doh_score_map expects (H, W), got "
                          f"{tuple(image.shape)}")
     if image.is_cuda and use_kernel:
         x = image.to(torch.float32).contiguous()
-        return _launch_score_map(x, threshold, n_scales, base_sigma, border,
-                                 spacing)
+        raw, score, _, _ = _launch_score_map(
+            x, [(0, *x.shape, border)], threshold, n_scales, base_sigma,
+            spacing, full_map=True)
+        return score, raw
     return doh_score_map_plain(image, threshold, n_scales, base_sigma,
                                border, spacing)
