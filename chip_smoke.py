@@ -91,7 +91,24 @@ Phases, one line of output each:
                 CPU's; panoramas equal the CPU run's; (h), (i) launch no
                 kernel, (j) K1-K4.  Then one line of the phase searches'
                 device times (CUDA events), attempts and dispatches.
-  7. pool split — (b)'s score-map pool once more: its device ms a frame
+  7. fusion   — path (k), the other fusion modes on the feature set's
+                first segment (10 gray frames, path (a)'s offsets): each of
+                notFuse, average, maximum, minimum, trigonometric,
+                multiBandBlending and optimalSeamLine composed on the card
+                (``compose``, ``return_device``, CUDA-event ms) against the
+                port's CPU composer on the same frames: the integer modes
+                bit-equal, the others within one level on at most 1e-3 of
+                the fused-rect pixels and equal elsewhere; the seam's
+                energy and mask of every fusion rect, card against CPU
+                (the mask from the same energy), and the DP's wall; the
+                host float64 composer (``compose_host``) of every mode it
+                runs within one level of the card's panorama on under
+                1e-2 of values; color multiband and seam raise; then the
+                CLI, ``--gray --stream-output --fuse-method
+                multiBandBlending``, on the 11 frames as gray PNGs: exactly
+                the two expected files, decoding to a stitch_files run's
+                panoramas.  Launches no kernel.
+  8. pool split — (b)'s score-map pool once more: its device ms a frame
                 by stage (torch.profiler, tools/torch_pool_split.py) and
                 the card's busy share; last, because the profiler slows
                 the process's later CUDA calls.
@@ -675,6 +692,7 @@ def main():
             not rep.confidences[9] > 0:
         raise AssertionError(f"(a): directions {rep.directions}, "
                              f"confidences {rep.confidences}")
+    offsets_a = rep.offsets[:9]     # path (k) composes with these
     run_path("(b) feature_incre auto_upright=False", base.replace(
         features=FeatureConfig(auto_upright=False)), 10, [(0, 10)],
         {"doh_score_map": 10, "top2_l2_coords": None, "doh_select": 0})
@@ -1013,7 +1031,133 @@ def main():
     print("phase searches (events, host replay included): "
           + "; ".join(searches))
 
-    # ---- 7. the score-map pool's device time a frame, by stage (path
+    # ---- 7. path (k): the other fusion modes on the feature set's first
+    # segment, with path (a)'s offsets; no kernel lies on this path
+    from imagestitch_tpu_torch.ops.fusion import seam as fseam
+    seg = frames[:10]
+    _, ksteps, _ = compose_mod.plan_compose(offsets_a, (h, w), base)
+    fused_px = np.zeros(compose_mod.compute_placement(
+        offsets_a, (h, w)).canvas_shape, bool)
+    for st_ in ksteps:
+        if st_[0] == "fuse":
+            (rr, rc), (rh, rw) = st_[3], st_[4]
+            fused_px[rr:rr + rh, rc:rc + rw] = True
+    exact = ("notFuse", "average", "maximum", "minimum")
+    fusion = []
+    for mode in exact + ("trigonometric", "multiBandBlending",
+                         "optimalSeamLine"):
+        label = f"(k) {mode}"
+        kcfg = base.replace(fuse_method=mode)
+        compose_mod.compose(gray[:10], offsets_a, kcfg)            # warm-up
+        zero_counts()
+        pano_dev, ms, wall = timed(torch, lambda: compose_mod.compose(
+            gray[:10], offsets_a, kcfg, return_device=True))
+        read_counts(label, no_kernel)
+        if pano_dev.device.type != "cuda":
+            raise AssertionError(f"{label}: composed on {pano_dev.device}")
+        pano = pano_dev.cpu().numpy()
+        cpu = compose_mod.compose(seg, offsets_a, kcfg, device="cpu")
+        diff = np.abs(pano.astype(np.int16) - cpu.astype(np.int16))
+        frac = float((diff[fused_px] != 0).mean())
+        if pano.shape != fused_px.shape or (pano > 0).mean() < 0.9:
+            raise AssertionError(f"{label}: panorama {pano.shape}")
+        if (mode in exact and diff.max() != 0) or diff.max() > 1 or \
+                frac > 1e-3 or diff[~fused_px].any():
+            raise AssertionError(f"{label}: card against the CPU: max "
+                                 f"diff {diff.max()}, {frac:.3g} of the "
+                                 f"fused-rect pixels differ")
+        item = (f"{mode} {ms:.2f} ms (wall {wall:.1f}), {frac:.3g} of "
+                f"fused differ")
+        if mode in compose_mod._PADDABLE_METHODS:
+            host = stream_out.compose_host(seg, offsets_a, kcfg)
+            hd = np.abs(host.astype(np.int16) - pano.astype(np.int16))
+            if hd.max() > 1 or (hd != 0).mean() >= 1e-2:
+                raise AssertionError(f"{label}: host float64 against the "
+                                     f"card: max diff {hd.max()}, "
+                                     f"{(hd != 0).mean():.3g} differ")
+            item += (f", host f64 ({native_loader.route()}) "
+                     f"{(hd != 0).mean():.3g} of values differ")
+        fusion.append(item)
+    # the seam of every fusion rect: the card's energy against the CPU's
+    # on the same rects, the CPU's mask from the card's energy
+    rois = []
+    real_fuse = fseam.fuse_optimal_seam
+
+    def keep_rois(a, b):
+        rois.append((a.clone(), b.clone()))
+        return real_fuse(a, b)
+    fseam.fuse_optimal_seam = keep_rois
+    try:
+        compose_mod.compose(gray[:10], offsets_a,
+                            base.replace(fuse_method="optimalSeamLine"))
+    finally:
+        fseam.fuse_optimal_seam = real_fuse
+    dp_walls, e_gap = [], 0.0
+    for a, b in rois:
+        pa, pb = fseam._prefill_background(a, b)
+        e_dev = fseam.seam_energy(pa, pb)
+        e_cpu = fseam.seam_energy(pa.cpu(), pb.cpu())
+        gap = float(((e_dev.cpu() - e_cpu).abs()
+                     / e_cpu.abs().clamp_min(1e-30)).max())
+        if gap > 1e-5:
+            raise AssertionError(f"(k) seam energy: {gap:.3g} relative "
+                                 f"from the CPU's")
+        e_gap = max(e_gap, gap)
+        m_dev, _, dp_wall = timed(torch, lambda: fseam.find_optimal_seam(
+            e_dev))
+        if not torch.equal(m_dev.cpu(), fseam.find_optimal_seam(
+                e_dev.cpu())):
+            raise AssertionError(f"(k) seam mask of a {tuple(a.shape)} rect "
+                                 f"differs from the CPU's")
+        dp_walls.append((tuple(a.shape), round(dp_wall, 1)))
+    for mode in compose_mod._GRAY_ONLY_METHODS:
+        try:
+            compose_mod.compose(np.zeros((2, 8, 8, 3), np.uint8), [(4, 0)],
+                                base.replace(fuse_method=mode))
+        except ValueError:
+            continue
+        raise AssertionError(f"(k) color {mode} did not raise")
+    # the CLI on the 11 frames as gray PNGs
+    work = tempfile.mkdtemp(prefix="chip_smoke_k_")
+    try:
+        proj = os.path.join(work, "proj")
+        for i, im in enumerate(frames):
+            codec.imwrite(os.path.join(proj, "1", f"tile_{i:02d}.png"), im)
+        files = dataset.list_project_images(proj, 1, "png")
+        out = os.path.join(work, "k")
+        argv = ["stitch", proj, out, "--device", "cuda", "--file-extension",
+                "png", "--output-extension", "png", "--gray",
+                "--stream-output", "--fuse-method", "multiBandBlending",
+                "--quiet"]
+        kcfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+        zero_counts()
+        t0 = time.perf_counter()
+        if cli.main(argv) != 0:
+            raise AssertionError("(k) CLI: returned nonzero")
+        wall_cli = time.perf_counter() - t0
+        read_counts("(k) CLI", expect)
+        if sorted(os.listdir(out)) != outputs:
+            raise AssertionError(f"(k) CLI: wrote {sorted(os.listdir(out))}")
+        res = Stitcher(kcfg, device=dev).stitch_files(files)
+        for name, r in zip(outputs, res):
+            if not np.array_equal(codec.imread(os.path.join(out, name),
+                                               False), r.image):
+                raise AssertionError(f"(k) CLI: {name} differs from "
+                                     f"stitch_files' panorama")
+        if res[0].offsets != offsets_a:
+            raise AssertionError(f"(k) CLI: offsets {res[0].offsets}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"fusion (k): {len(seg)} x {h}x{w} gray frames, path (a)'s "
+          f"offsets, {int(fused_px.sum())} fused-rect pixels; card against "
+          f"the CPU composer, device ms (events, wall ms host clock): "
+          + "; ".join(fusion) + f"; seam energy card/CPU max relative gap "
+          f"{e_gap:.3g}, masks equal, DP wall ms by rect {dp_walls}; color "
+          f"multiband and seam raise; CLI --gray --stream-output "
+          f"--fuse-method multiBandBlending {wall_cli:.3f} s -> {outputs}, "
+          f"== stitch_files")
+
+    # ---- 8. the score-map pool's device time a frame, by stage (path
     # (b)'s pool).  Last: after torch.profiler has traced the card, every
     # later CUDA call of this process runs slower (the paths' walls of
     # phases 5 and 6 rose by up to 40% when this ran before them)

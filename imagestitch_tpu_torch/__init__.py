@@ -5,12 +5,14 @@ Registration by all five strategies of the JAX package (pooled
 incremental and whole-image phase correlation, and ``hybrid``; upright or
 oriented SURF over the fused or the score-map pool; host replay of the
 reference's scale x direction search), on the card unless the caller
-asks for the CPU; fade composition in color (the default) or gray on the
-device or, with ``stream_output``, on the host in float64; pipelined file
-ingest, registration checkpoints, ``Stitcher.stitch_project_set`` and the
-CLI (``python -m imagestitch_tpu_torch.cli stitch ...``), in PyTorch, with
-hand-written CUDA kernels for Hopper (``csrc/``) where the JAX package runs
-Pallas kernels, and the shared C++ host runtime (``native/``) where it runs
+asks for the CPU; composition in every fusion mode of the JAX package, in
+color (the default) or gray (multiband and the optimal seam: gray only),
+on the device or, with ``stream_output``, on the host in float64;
+pipelined file ingest, registration checkpoints,
+``Stitcher.stitch_project_set`` and the CLI (``python -m
+imagestitch_tpu_torch.cli stitch ...``), in PyTorch, with hand-written
+CUDA kernels for Hopper (``csrc/``) where the JAX package runs Pallas
+kernels, and the shared C++ host runtime (``native/``) where it runs
 that.  Imports torch only — never jax or the JAX package.
 """
 from .config import (EnhanceConfig, FeatureConfig, StitchConfig,

@@ -1,13 +1,14 @@
 """Canvas placement and composition.
 
-Port of ``imagestitch_tpu/core/compose.py`` for fade fusion, gray and
-color: placement is integer bookkeeping on the host (exact reference
-semantics, Stitcher.py:387-431, including the running-max occupancy quirk),
-and the canvas is ONE int16 device tensor at its final size, (rows, cols)
-or (rows, cols, 3), with the reference's ``-1`` sentinel.  Each step
-pastes its frame in place and fuses the exact overlap rect against the
-canvas before and after the paste (Stitcher.py:440-486); no shape buckets
-are needed because PyTorch runs eagerly.
+Port of ``imagestitch_tpu/core/compose.py`` for every fusion mode, gray and
+color (multiband and the optimal seam: gray only): placement is integer
+bookkeeping on the host (exact reference semantics, Stitcher.py:387-431,
+including the running-max occupancy quirk), and the canvas is ONE int16
+device tensor at its final size, (rows, cols) or (rows, cols, 3), with the
+reference's ``-1`` sentinel.  Each step pastes its frame in place and fuses
+the exact overlap rect against the canvas before and after the paste
+(Stitcher.py:440-486), in the reference's paste/fuse order; no shape
+buckets are needed because PyTorch runs eagerly.
 """
 from __future__ import annotations
 
@@ -20,6 +21,15 @@ import torch
 from ..config import StitchConfig
 from ..device import resolve_device
 from ..ops.fusion import blend
+from ..ops.fusion import pyramid as fusion_pyramid
+from ..ops.fusion import seam as fusion_seam
+
+#: the modes the JAX composer pads to shape buckets, and the host float64
+#: composers run (JAX compose.py:373-374)
+_PADDABLE_METHODS = ("notFuse", "average", "maximum", "minimum",
+                     "fadeInAndFadeOut", "trigonometric")
+#: the modes the reference runs on gray only (JAX compose.py:274-275)
+_GRAY_ONLY_METHODS = ("multiBandBlending", "optimalSeamLine")
 
 
 @dataclasses.dataclass
@@ -121,6 +131,16 @@ def plan_compose(offsets: Sequence[Tuple[int, int]],
     return placement, steps, pairwise
 
 
+def _fuse_dispatch(roi_a, roi_b, drow: int, dcol: int, method: str,
+                   color: bool) -> torch.Tensor:
+    """One fusion rect by ``method`` (JAX compose.py:152-157)."""
+    if method == "multiBandBlending":
+        return fusion_pyramid.fuse_multiband(roi_a, roi_b)
+    if method == "optimalSeamLine":
+        return fusion_seam.fuse_optimal_seam(roi_a, roi_b)
+    return blend.fuse_region(roi_a, roi_b, drow, dcol, method, color)
+
+
 def compose(images, offsets: Sequence[Tuple[int, int]], cfg: StitchConfig,
             return_device: bool = False, device="cuda"):
     """Compose a registered sequence into one uint8 panorama.
@@ -133,12 +153,12 @@ def compose(images, offsets: Sequence[Tuple[int, int]], cfg: StitchConfig,
     composed.  Parity
     with Stitcher.py:440-486: image i fuses only against the occupancy rect
     of image i-1, the fuse rect sees the canvas before and after pasting
-    image i, and fusion uses the pairwise offset.
+    image i, and fusion uses the pairwise offset.  Multiband and the
+    optimal seam raise ``ValueError`` on color frames, before any work.
     """
-    if cfg.fuse_method != "fadeInAndFadeOut":
-        raise NotImplementedError(
-            f"fuse_method={cfg.fuse_method!r} is not ported yet (ROADMAP "
-            f"Queue 1 item 18)")
+    if images.ndim == 4 and cfg.fuse_method in _GRAY_ONLY_METHODS:
+        raise ValueError(f"fuse_method={cfg.fuse_method!r} composes gray "
+                         f"frames only (the reference's), got color")
     if not isinstance(images, torch.Tensor):
         images = torch.as_tensor(images).to(resolve_device(device,
                                                            "compose"))
@@ -161,6 +181,7 @@ def compose(images, offsets: Sequence[Tuple[int, int]], cfg: StitchConfig,
         canvas[r:r + h, c:c + w] = img
         roi_b = view.to(torch.int32)               # after the paste
         drow, dcol = pairwise[i]
-        view.copy_(blend.fuse_fade(roi_a, roi_b, drow, dcol, color))
+        view.copy_(_fuse_dispatch(roi_a, roi_b, drow, dcol, cfg.fuse_method,
+                                  color))
     pano = canvas.clamp_(min=0).to(torch.uint8)   # -1 sentinel -> 0
     return pano if return_device else pano.cpu().numpy()

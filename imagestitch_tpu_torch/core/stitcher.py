@@ -45,14 +45,9 @@ def check_supported(cfg: StitchConfig) -> None:
     """Raise NotImplementedError, naming the ROADMAP item that will port it,
     for a configuration outside the ported slice."""
     from .feature_registration import check_supported as check_registration
-    todo = []
     if cfg.use_global_solver:
-        todo.append("use_global_solver (ROADMAP Queue 1 item 20)")
-    if cfg.fuse_method != "fadeInAndFadeOut":
-        todo.append(f"fuse_method={cfg.fuse_method!r} (ROADMAP Queue 1 "
-                    f"item 18)")
-    if todo:
-        raise NotImplementedError("not ported yet: " + "; ".join(todo))
+        raise NotImplementedError("not ported yet: use_global_solver "
+                                  "(ROADMAP Queue 1 item 20)")
     check_registration(cfg)
 
 
@@ -181,21 +176,26 @@ class Stitcher:
     def _compose_segment(self, batch: dataset.ImageBatch, seg_images,
                          seg_offsets, start: int, end: int) -> np.ndarray:
         """Compose one segment (JAX stitcher.py:206-240): on the device with
-        a full readback by default; with ``stream_output``, color on the
+        a full readback by default.  With ``stream_output`` and a mode the
+        host composers run (``compose._PADDABLE_METHODS``), color on the
         host in float64 and gray on the host in float64 (runtime present)
-        or on the device with a rect-only readback (runtime absent)."""
+        or on the device with a rect-only readback (runtime absent); gray
+        multiband and seam take the rect-only readback, and color multiband
+        and seam go to ``compose``, which raises."""
         cfg = self.cfg
         if cfg.stream_output:
             from ..io import native_loader
             from . import stream_out
+            paddable = cfg.fuse_method in compose_mod._PADDABLE_METHODS
             if cfg.color_mode:
-                if isinstance(batch.color, np.ndarray):
+                if isinstance(batch.color, np.ndarray) and paddable:
                     return stream_out.compose_color_host(
                         seg_images, seg_offsets, cfg)
             else:
                 host = batch.gray_host if batch.gray_host is not None else (
                     batch.gray if isinstance(batch.gray, np.ndarray) else None)
-                if host is not None and native_loader.get_lib() is not None:
+                if host is not None and paddable and \
+                        native_loader.get_lib() is not None:
                     return stream_out.compose_host(host[start:end + 1],
                                                    seg_offsets, cfg)
                 if host is not None:

@@ -1,21 +1,24 @@
 """Streamed panorama output: host float64 composition and rect-only readback.
 
-Port of ``imagestitch_tpu/core/stream_out.py`` (:50-272, :283-399) for fade
-fusion, without ``compose_host_positions`` (the solver, ROADMAP Queue 1
-item 20).  Two composers materialize the panorama on the host without a
-full-canvas readback:
+Port of ``imagestitch_tpu/core/stream_out.py`` (:50-272, :283-399), without
+``compose_host_positions`` (the solver, ROADMAP Queue 1 item 20).  Two
+composers materialize the panorama on the host without a full-canvas
+readback:
 
   * ``compose_host`` / ``compose_color_host`` replay the device composer's
     paste/fuse steps on a host int16 canvas and blend each fusion rect in
-    float64, the reference's own arithmetic (ImageFusion.py:241-243).  With
-    the shared C++ runtime (io/native_loader.py) each step is one
-    ``isr_fuse_step`` call; without it, numpy (ops/fusion/host_blend.py).
-    No color byte crosses the host-device link.  The device composer's
+    float64, the reference's own arithmetic (ImageFusion.py:241-243), for
+    the modes the JAX composer pads (``compose._PADDABLE_METHODS``).  With
+    the shared C++ runtime (io/native_loader.py) a fade or trigonometric
+    step is one ``isr_fuse_step`` call; the other modes, and every mode
+    without the runtime, run in numpy (ops/fusion/host_blend.py).  No
+    color byte crosses the host-device link.  The device composer's
     float32 blend agrees to one level on a small fraction of pixels.
   * ``compose_streamed`` composes on the device and reads back only the
     parts of the fusion rects that no later step overwrites; the host
     replays every paste from the frames it decoded, then patches those
-    rects in.  Bit-equal to the device composer.
+    rects in.  Bit-equal to the device composer, in every mode (multiband
+    and the optimal seam compose this way on gray frames).
 """
 from __future__ import annotations
 
@@ -189,7 +192,9 @@ def compose_host(frames: np.ndarray, offsets: Sequence[Tuple[int, int]],
 
 def _run_steps_host(frames: np.ndarray, canvas_shape, steps, pairwise,
                     cfg: StitchConfig) -> np.ndarray:
-    host_blend._check_fade(cfg.fuse_method)
+    method = cfg.fuse_method
+    if method not in compose_mod._PADDABLE_METHODS:
+        raise ValueError(f"{method} is not supported by the host composer")
     if frames.dtype != np.uint8:
         raise ValueError(f"uint8 frames expected, got {frames.dtype}")
     color = frames.ndim == 4
@@ -198,6 +203,8 @@ def _run_steps_host(frames: np.ndarray, canvas_shape, steps, pairwise,
     rows, cols = canvas_shape
     shape = (rows, cols, 3) if color else (rows, cols)
     lib = native_loader.get_lib()
+    if method not in ("fadeInAndFadeOut", "trigonometric"):
+        lib = None          # the runtime blends the weighted modes only
     if lib is not None:
         canvas = np.empty(shape, np.int16)
         lib.isr_fill16(canvas.ctypes.data_as(_I16P), canvas.size, -1, 0)
@@ -218,13 +225,13 @@ def _run_steps_host(frames: np.ndarray, canvas_shape, steps, pairwise,
         pw = pairwise[i]
         if lib is not None:
             _native_fuse_step(lib, canvas, frame, (r, c), (rr0, rc0, rh, rw),
-                              pw)
+                              pw, method)
             continue
         roi_a = canvas[rr0:rr0 + rh, rc0:rc0 + rw].astype(np.int32)
         canvas[r:r + h, c:c + w] = frame
         roi_b = canvas[rr0:rr0 + rh, rc0:rc0 + rw].astype(np.int32)
         fused = host_blend.fuse_region_np(roi_a, roi_b, pw[0], pw[1],
-                                          cfg.fuse_method, color)
+                                          method, color)
         canvas[rr0:rr0 + rh, rc0:rc0 + rw] = fused
     if lib is not None:
         out = np.empty(shape, np.uint8)
@@ -235,11 +242,12 @@ def _run_steps_host(frames: np.ndarray, canvas_shape, steps, pairwise,
 
 
 def _native_fuse_step(lib, canvas: np.ndarray, frame: np.ndarray,
-                      pos, rect, pw) -> None:
-    """One fade paste+fuse step in the runtime (``isr_fuse_step``): rect
-    statistics in one C pass, the weight decisions in Python
-    (host_blend.corner_vectors_from_stats), then blend, paste and
-    write-back in place on the int16 canvas."""
+                      pos, rect, pw, method: str) -> None:
+    """One fade or trigonometric paste+fuse step in the runtime
+    (``isr_fuse_step``): rect statistics in one C pass, the weight
+    decisions in Python (host_blend.corner_vectors_from_stats), then
+    blend, paste and write-back in place on the int16 canvas.  Weight
+    modes: 0 plain fade, 1 corner fade, 2 plain sin^2, 3 corner sin^2."""
     r, c = pos
     rr0, rc0, rh, rw = rect
     h, w = frame.shape[:2]
@@ -254,18 +262,25 @@ def _native_fuse_step(lib, canvas: np.ndarray, frame: np.ndarray,
         first_v.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
         last_v.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
         npos.ctypes.data_as(ctypes.POINTER(ctypes.c_longlong)))
+    fade = method == "fadeInAndFadeOut"
+    zr, zc = np.zeros(rh, np.float64), np.zeros(rw, np.float64)
     if float(npos[0]) / (rh * rw * ch) > 0.65:
-        war, wac, wbr, wbc = host_blend._plain_fade_vectors((rh, rw), pw[0],
-                                                            pw[1])
-        mode = 0
+        if fade:
+            war, wac, wbr, wbc = host_blend._plain_fade_vectors(
+                (rh, rw), pw[0], pw[1])
+            mode = 0
+        else:
+            war, wac = host_blend._trig_plain_vectors((rh, rw), pw[0], pw[1])
+            wbr, wbc = zr, zc
+            mode = 2
     else:
         def row_valid(ri):
             v = canvas[rr0 + ri, rc0:rc0 + rw]
             return (v.sum(axis=-1) != -3) if ch == 3 else (v != -1)
         wbr, wbc = host_blend.corner_vectors_from_stats(
             quad, first_v, last_v, row_valid, rh, rw)
-        war, wac = np.zeros(rh, np.float64), np.zeros(rw, np.float64)
-        mode = 1
+        war, wac = zr, zc
+        mode = 1 if fade else 3
     war, wac, wbr, wbc = (np.ascontiguousarray(v, np.float64)
                           for v in (war, wac, wbr, wbc))
     lib.isr_fuse_step(

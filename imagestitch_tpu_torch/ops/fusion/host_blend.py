@@ -1,13 +1,14 @@
-"""Host-side (numpy, float64) fade fusion — the reference's exact arithmetic.
+"""Host-side (numpy, float64) fusion — the reference's exact arithmetic.
 
-Port of ``imagestitch_tpu/ops/fusion/host_blend.py`` for
-``fadeInAndFadeOut``: the reference blends through numpy float64
+Port of ``imagestitch_tpu/ops/fusion/host_blend.py`` for the modes the
+JAX composer pads (notFuse, average, maximum, minimum, fade and
+trigonometric): the reference blends through numpy float64
 (ImageFusion.py:85-94, :241-243), and the streamed-output composers
 (core/stream_out.py) run these functions on the host.  Weight matrices are
-separable, so they are returned as per-row / per-column factor vectors: the
-native runtime's ``isr_fuse_step`` takes the vectors, and the numpy route
-(``fuse_region_np``) materializes them.  The other fusion modes raise
-(ROADMAP Queue 1 item 18).
+separable, so they are built as per-row / per-column factor vectors: the
+native runtime's ``isr_fuse_step`` takes the vectors (fade and
+trigonometric, weight modes 0-3), and the numpy route (``fuse_region_np``)
+materializes them.
 """
 from __future__ import annotations
 
@@ -131,6 +132,16 @@ def corner_fade_weights_np(image_a: np.ndarray, color: bool
     return 1.0 - wb, wb
 
 
+def _prefill_np(a: np.ndarray, b: np.ndarray):
+    """Background elimination (Stitcher.py:498-504): -1 -> 0, then each 0
+    filled from the other region (B from the already-filled A)."""
+    a = np.where(a == -1, 0, a)
+    b = np.where(b == -1, 0, b)
+    a_f = np.where(a == 0, b, a)
+    b_f = np.where(b == 0, a_f, b)
+    return a_f, b_f
+
+
 def _apply_weights_np(a: np.ndarray, b: np.ndarray, wa, wb, color: bool
                       ) -> np.ndarray:
     """A[A<0] <- B; float64 blend; clamp [0,255] (ImageFusion.py:240-243)."""
@@ -160,25 +171,51 @@ def _plain_fade_vectors(shape_hw, drow, dcol):
     return wa, ones, wb, ones
 
 
-def _check_fade(method: str) -> None:
-    if method != "fadeInAndFadeOut":
-        raise NotImplementedError(
-            f"host fusion fuse_method={method!r} is not ported yet (ROADMAP "
-            f"Queue 1 item 18)")
+def _trig_plain_vectors(shape_hw, drow, dcol):
+    """Trigonometric fusion's plain ramp of A as separable factors
+    (war, wac), float64: the mirror of the fade ramp
+    (ImageFusion.py:265-270)."""
+    row, col = shape_hw
+    if col <= row:
+        j = np.arange(col, dtype=np.float64)
+        base = j / col if dcol >= 0 else (col - j) / col
+        return np.ones(row, np.float64), base
+    i = np.arange(row, dtype=np.float64)
+    base = i / row if drow <= 0 else (row - i) / row
+    return base, np.ones(col, np.float64)
 
 
 def fuse_region_np(image_a: np.ndarray, image_b: np.ndarray,
                    drow: int, dcol: int, method: str, color: bool
                    ) -> np.ndarray:
-    """Host float64 ``fuseImage`` (Stitcher.py:488-525) for fade, numpy
-    route.  ``image_a``/``image_b``: int regions with -1 sentinels."""
-    _check_fade(method)
+    """Host float64 ``fuseImage`` (Stitcher.py:488-525), numpy route.
+    ``image_a``/``image_b``: int regions with -1 sentinels.  The integer
+    modes pre-fill the background; fade and trigonometric take the plain
+    ramps over 65% valid, else the corner weights, trigonometric through
+    sin^2 (weight modes 2 and 3 of the runtime)."""
+    if method in ("average", "maximum", "minimum", "notFuse"):
+        a, b = _prefill_np(image_a, image_b)
+        if method == "notFuse":
+            return b.astype(np.uint8)
+        if method == "average":
+            return ((a + b) // 2).astype(np.uint8)
+        if method == "maximum":
+            return np.maximum(a, b).astype(np.uint8)
+        return np.minimum(a, b).astype(np.uint8)
+    if method not in ("fadeInAndFadeOut", "trigonometric"):
+        raise ValueError(f"host fusion does not support: {method}")
     row, col = image_a.shape[0], image_a.shape[1]
-    valid_frac = np.count_nonzero(image_a > -1) / image_a.size
-    if valid_frac > 0.65:
+    plain = np.count_nonzero(image_a > -1) / image_a.size > 0.65
+    if plain and method == "fadeInAndFadeOut":
         war, wac, wbr, wbc = _plain_fade_vectors((row, col), drow, dcol)
         wa = war[:, None] * wac[None, :]
         wb = wbr[:, None] * wbc[None, :]
+    elif plain:
+        war, wac = _trig_plain_vectors((row, col), drow, dcol)
+        wa = war[:, None] * wac[None, :]
     else:
         wa, wb = corner_fade_weights_np(image_a, color)
+    if method == "trigonometric":
+        wa = np.sin(wa * np.pi / 2.0) ** 2
+        wb = 1.0 - wa
     return _apply_weights_np(image_a, image_b, wa, wb, color)

@@ -1,4 +1,4 @@
-"""Fade fusion weight matrices.
+"""Fade (and trigonometric) fusion weight matrices.
 
 Port of the static-shape weights of ``imagestitch_tpu/ops/fusion/weights.py``
 (:20-111, :280-349): separable ramps for a full overlap and the corner

@@ -1,6 +1,7 @@
 """Fade composition: the port's compose (exact-rect eager steps, static-shape
 weights) against the JAX compose (bucketed lax.scan steps, dynamic-rect
-weights) on gray frames, plus the host placement against the JAX one.
+weights) on gray frames, plus the host placement against the JAX one
+(the other fusion modes: test_torch_fusion_modes.py).
 Panoramas are bit-equal: the port rounds the blend as the fused
 multiply-add that XLA emits in the JAX composer (ops/fusion/blend.py)."""
 import numpy as np
@@ -69,10 +70,19 @@ def test_grid_corner_case_takes_corner_weights():
     assert torch.equal(wa, ca) and torch.equal(wb, cb)
 
 
-def test_unsupported_fusion_raises():
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tcompose.compose(_frames(0, 2), [(50, 0)],
-                         StitchConfig(fuse_method="average"))
-    with pytest.raises(NotImplementedError, match="item 18"):
-        tcompose.compose(np.zeros((2, H, W, 3), np.uint8), [(50, 0)],
-                         StitchConfig(fuse_method="average"))
+def test_unsupported_fusion_raises(monkeypatch):
+    """Every fusion mode is ported: average composes as the JAX package
+    does (each mode's parity is in test_torch_fusion_modes.py), and color
+    multiband and optimal seam raise ValueError before any work, even
+    before the card is looked for (the JAX package asserts gray)."""
+    frames = _frames(0, 2)
+    np.testing.assert_array_equal(
+        tcompose.compose(frames, [(50, 0)],
+                         StitchConfig(fuse_method="average"), device="cpu"),
+        np.asarray(jcompose.compose(frames, [(50, 0)],
+                                    JStitchConfig(fuse_method="average"))))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for method in ("multiBandBlending", "optimalSeamLine"):
+        with pytest.raises(ValueError, match="gray frames only"):
+            tcompose.compose(np.zeros((2, H, W, 3), np.uint8), [(50, 0)],
+                             StitchConfig(fuse_method=method))

@@ -15,8 +15,11 @@ def no_cuda(monkeypatch):
 def test_stitcher_without_device_needs_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Stitcher(StitchConfig())
-    # an unported configuration still names its ROADMAP item first
-    with pytest.raises(NotImplementedError, match="item 18"):
+    # an unported configuration still names its ROADMAP item first; a
+    # ported fusion mode needs the card like any other
+    with pytest.raises(NotImplementedError, match="item 20"):
+        Stitcher(StitchConfig(use_global_solver=True))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         Stitcher(StitchConfig(fuse_method="average"))
     assert Stitcher(StitchConfig(), device="cpu").device.type == "cpu"
 

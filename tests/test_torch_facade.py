@@ -137,8 +137,14 @@ def test_default_configurations_construct():
     Stitcher(StitchConfig(), device="cpu")
     Stitcher(StitchConfig(stream_output=True), device="cpu")
     Stitcher(StitchConfig(color_mode=False, stream_output=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 18"):
-        Stitcher(StitchConfig(fuse_method="trigonometric"), device="cpu")
+    # every --fuse-method choice reaches a Stitcher that constructs
+    for method in ("notFuse", "average", "maximum", "minimum",
+                   "fadeInAndFadeOut", "trigonometric", "multiBandBlending",
+                   "optimalSeamLine"):
+        args = cli.build_parser().parse_args(["stitch", "p", "o",
+                                              "--fuse-method", method])
+        st = Stitcher(cli.config_from_args(args), device="cpu")
+        assert st.cfg.fuse_method == method
     with pytest.raises(NotImplementedError, match="item 20"):
         Stitcher(StitchConfig(use_global_solver=True), device="cpu")
 

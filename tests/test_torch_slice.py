@@ -22,7 +22,8 @@ from imagestitch_tpu import FeatureConfig as JFeatureConfig
 from imagestitch_tpu import StitchConfig as JStitchConfig
 from imagestitch_tpu.core import compose as jcompose
 from imagestitch_tpu.core import feature_registration as jfr
-from imagestitch_tpu_torch import FeatureConfig, StitchConfig, Stitcher
+from imagestitch_tpu_torch import (FeatureConfig, StitchConfig, Stitcher,
+                                   compose)
 from imagestitch_tpu_torch.convert import config_from_jax
 from imagestitch_tpu_torch.io import codec
 from imagestitch_tpu_torch.io.dataset import ImageBatch, list_project_images
@@ -117,18 +118,47 @@ def test_stitch_files_and_direction_persistence(frames, tmp_path):
     assert st._direction == 3
 
 
+@pytest.fixture(scope="module")
+def upright_records(frames):
+    """The records of the 5 frames (upright, 256 keypoints), registered
+    once for the composition-only cases."""
+    cfg = StitchConfig(color_mode=False,
+                       features=FeatureConfig(upright=True, max_keypoints=256))
+    return Stitcher(cfg, device="cpu").register(frames[0])
+
+
 @pytest.mark.parametrize("change", [
     dict(fuse_method="average"),
     dict(fuse_method="trigonometric"),
     dict(fuse_method="multiBandBlending"),
     dict(use_global_solver=True),
 ])
-def test_outside_the_slice_raises(change):
-    """Stitcher-level options; the registration-level ones are in
+def test_outside_the_slice_raises(frames, upright_records, change):
+    """Stitcher-level options.  The global solver still raises, naming its
+    ROADMAP item; the fusion modes are ported: the Stitcher composes each
+    segment as ``compose`` does (their parity with the JAX package is in
+    test_torch_fusion_modes.py and test_torch_pyramid_seam.py), and color
+    multiband raises ValueError.  The registration-level options are in
     test_torch_unported.py."""
     cfg = StitchConfig(color_mode=False).replace(**change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Stitcher(cfg, device="cpu")
+    if cfg.use_global_solver:
+        with pytest.raises(NotImplementedError, match="item 20"):
+            Stitcher(cfg, device="cpu")
+        return
+    frames, _ = frames
+    files = [f"f{i}" for i in range(len(frames))]
+    res = Stitcher(cfg, device="cpu").stitch_batch(
+        ImageBatch(gray=frames, color=None, files=files),
+        recs=upright_records)
+    assert [r.file_range for r in res] == [(0, 4), (4, 5)]
+    np.testing.assert_array_equal(
+        res[0].image, compose(frames[:4], res[0].offsets, cfg, device="cpu"))
+    if cfg.fuse_method == "multiBandBlending":
+        color = np.repeat(frames[..., None], 3, axis=-1)
+        with pytest.raises(ValueError, match="gray"):
+            Stitcher(cfg.replace(color_mode=True), device="cpu").stitch_batch(
+                ImageBatch(gray=frames, color=color, files=files),
+                recs=upright_records)
 
 
 def test_mesh_and_oriented_fallback_raise(frames, monkeypatch):
