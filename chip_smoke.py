@@ -108,7 +108,36 @@ Phases, one line of output each:
                 multiBandBlending``, on the 11 frames as gray PNGs: exactly
                 the two expected files, decoding to a stitch_files run's
                 panoramas.  Launches no kernel.
-  8. pool split — (b)'s score-map pool once more: its device ms a frame
+  8. slice    — the configurations of strict-ROI detection, enhancement,
+                the XLA detector's pool and RANSAC, on the feature set
+                through Stitcher.stitch_batch:
+                (l) feature_incre, offset_calculate="ransac" (11 frames):
+                    the fused pool (K1, K2), homography RANSAC over every
+                    strip match (K3);
+                (m) feature_incre, use_pallas=False (11 frames): the XLA
+                    detector's pool, upright then oriented for pair 9; only
+                    K3 launches;
+                (n) feature_incre, strict_roi_detect, CLAHE,
+                    ransac_translation (the first 7 frames): every strip
+                    enhanced and detected by the XLA detector, matched by
+                    K5;
+                (o) feature, equalized frames, "ransac" (11 frames): the
+                    XLA pool of the enhanced frames, K5 over every pair.
+                Each path: its launch counts; kernel run == plain run
+                (records, sub-pixel offsets, panoramas); the integer
+                records of the card equal the port's CPU run's, on all 11
+                frames for (l), on the first 4 for (m), (n) and (o) (the
+                card runs those 4 too; the CPU's XLA detector takes
+                seconds a full frame), sub-pixel within 1e-3 px; every
+                registered pair within 1 px of the truth on (m) and (n);
+                on (l) every pair registered in its true direction
+                (homography RANSAC accepts a coincidental fit of any 4
+                matches of strips that do not overlap, as the reference's
+                estimator does, so every pair's first attempt passes and
+                K4's fallback does not run); on (o) within 5 px (the
+                translation column of a homography fit over whole
+                frames).  One line a path with its warm walls.
+  9. pool split — (b)'s score-map pool once more: its device ms a frame
                 by stage (torch.profiler, tools/torch_pool_split.py) and
                 the card's busy share; last, because the profiler slows
                 the process's later CUDA calls.
@@ -1157,7 +1186,96 @@ def main():
           f"--fuse-method multiBandBlending {wall_cli:.3f} s -> {outputs}, "
           f"== stitch_files")
 
-    # ---- 8. the score-map pool's device time a frame, by stage (path
+    # ---- 8. the slice of strict-ROI detection, enhancement, the XLA pool
+    # and RANSAC: paths (l)-(o) on the feature set
+    def slice_path(label, cfg, n, expect, n_cpu, px=1, true_direction=False):
+        """Warm-up, the counted kernel run, the plain run, and the port's
+        CPU run on the first ``n_cpu`` frames against the card's on the
+        same frames.  Every registered pair within ``px`` of the truth, or
+        with ``true_direction`` every pair registered in its true direction
+        (homography RANSAC accepts a coincidental 4-match fit of strips
+        that do not overlap, as the reference's estimator does)."""
+        batch = ImageBatch(gray=frames[:n], color=None,
+                           files=[f"frame-{i}" for i in range(n)])
+        Recording(cfg, device=dev).stitch_batch(batch)         # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        st = Recording(cfg, device=dev)
+        t0 = time.perf_counter()
+        res = st.stitch_batch(batch)
+        wall = time.perf_counter() - t0
+        launches = read_counts(label, expect)
+        t0 = time.perf_counter()
+        plain = Recording(cfg.replace(use_kernels=False), device=dev)
+        res_plain = plain.stitch_batch(batch)
+        wall_plain = time.perf_counter() - t0
+        hold(label, st.records, plain.records, "the plain run")
+        if records_of(res[0].report) != records_of(res_plain[0].report) or \
+                not all(np.array_equal(a.image, b.image)
+                        for a, b in zip(res, res_plain)):
+            raise AssertionError(f"{label}: kernel run differs from the "
+                                 f"plain run")
+        small = ImageBatch(gray=frames[:n_cpu], color=None,
+                           files=[f"frame-{i}" for i in range(n_cpu)])
+        card = st if n_cpu == n else Recording(cfg, device=dev)
+        if n_cpu != n:
+            card.stitch_batch(small)
+        cpu = Recording(cfg, device="cpu")
+        t0 = time.perf_counter()
+        cpu.stitch_batch(small)
+        wall_cpu = time.perf_counter() - t0
+        rep = res[0].report
+        # the serpentine's steps: down (1), right (2), up (3)
+        true_dir = [1 if t[0] > 1000 else 3 if t[0] < -1000 else 2
+                    for t in truth]
+        near = [k for k, (r, t) in enumerate(zip(st.records, truth))
+                if r.ok and max(abs(r.offset[0] - t[0]),
+                                abs(r.offset[1] - t[1])) < px]
+        print(f"slice {label}: {n} x {h}x{w} frames, {rep.num_ok}/"
+              f"{rep.num_pairs} pairs, pairs {near} within {px} px of the "
+              f"truth, segments {[r.file_range for r in res]}, offsets "
+              f"{rep.offsets} (confidence {rep.confidences}, directions "
+              f"{rep.directions}, scales {rep.scales}), panorama "
+              f"{res[0].image.shape}; warm wall {wall:.3f} s with kernels, "
+              f"{wall_plain:.3f} s plain; launches {launches}; CPU run of "
+              f"the first {n_cpu} frames {wall_cpu:.1f} s")
+        for k, (r, t) in enumerate(zip(st.records, truth)):
+            if r.ok and k not in near and (not true_direction
+                                           or r.direction == true_dir[k]):
+                raise AssertionError(f"{label}: pair {k}: offset {r.offset} "
+                                     f"(direction {r.direction}), truth {t}")
+        if any(r.image.dtype != np.uint8 or r.image.ndim != 2 for r in res):
+            raise AssertionError(f"{label}: panoramas not 2-D uint8")
+        sub, _ = hold(label, card.records, cpu.records, "the CPU run")
+        print(f"slice {label}: integer records == the CPU run's on the "
+              f"first {n_cpu} frames, sub-pixel within {sub:.3g} px")
+
+    from imagestitch_tpu_torch import EnhanceConfig
+    no_pool = {"doh_select": 0, "describe_atlas": 0, "doh_score_map": 0}
+    # (l): every pair's first attempt is accepted (no pair fails, so the
+    # oriented fallback and K4 do not run); from the row step on, the
+    # persisting direction 1 meets strips that do not overlap
+    slice_path("(l) feature_incre ransac", base.replace(
+        offset_calculate="ransac", features=FeatureConfig()), 11,
+        {"doh_select": 11, "describe_atlas": 11, "top2_l2_coords": None,
+         "doh_score_map": 0, "top2_l2": 0}, 11, true_direction=True)
+    slice_path("(m) feature_incre use_pallas=False", base.replace(
+        use_pallas=False, features=FeatureConfig()), 11,
+        dict(no_pool, top2_l2_coords=None, top2_l2=0), 4)
+    slice_path("(n) feature_incre strict CLAHE ransac_translation",
+               base.replace(offset_calculate="ransac_translation",
+                            enhance=EnhanceConfig(enabled=True,
+                                                  use_clahe=True),
+                            features=FeatureConfig(strict_roi_detect=True)),
+               7, dict(no_pool, top2_l2=None, top2_l2_coords=0), 4)
+    # (o): the translation column of a homography fit over whole frames
+    # that overlap by 7.5% lies up to a few px from the offset
+    slice_path("(o) feature equalize ransac", base.replace(
+        registration="feature", offset_calculate="ransac",
+        enhance=EnhanceConfig(enabled=True), features=FeatureConfig()), 11,
+        dict(no_pool, top2_l2=None, top2_l2_coords=0), 4, px=5)
+
+    # ---- 9. the score-map pool's device time a frame, by stage (path
     # (b)'s pool).  Last: after torch.profiler has traced the card, every
     # later CUDA call of this process runs slower (the paths' walls of
     # phases 5 and 6 rose by up to 40% when this ran before them)

@@ -2,11 +2,14 @@
 
 The same fields, defaults and validation as ``imagestitch_tpu/config.py``
 (every knob of the reference's class-attribute config block, reference:
-ImageUtility.py:7-50, Stitcher.py:25-33, Main.py:5-14), with one rename:
-``use_pallas`` is ``use_kernels`` — True sends CUDA tensors through the
-hand-written Hopper kernels, False through their plain PyTorch versions.
-Field comments below that speak of the TPU describe the JAX package's
-behaviour, which the port reproduces.
+ImageUtility.py:7-50, Stitcher.py:25-33, Main.py:5-14), plus one field of
+its own, ``use_kernels``.  ``use_pallas`` chooses the pools as the JAX
+package does on a TPU: True takes the kernel pools (K1/K2, or K4),
+False the XLA detector's pool.  ``use_kernels`` chooses, for CUDA tensors,
+between the hand-written Hopper kernels (True) and their plain PyTorch
+versions (False; the tests and the smoke's comparison).  Field comments
+below that speak of the TPU describe the JAX package's behaviour, which
+the port reproduces.
 """
 from __future__ import annotations
 
@@ -156,6 +159,8 @@ class StitchConfig:
     compute_dtype: str = "float32"     # detector conv/response dtype
                                        # ("bfloat16" halves response-map HBM
                                        # traffic; FFTs always run float32)
+    use_pallas: bool = True            # the kernel pools (K1/K2 or K4);
+                                       # False: the XLA detector's pool
     use_kernels: bool = True           # CUDA kernels for CUDA tensors
                                        # (False: their plain PyTorch versions)
     phase_hbm_budget: int = 2 << 30    # per-chip budget for the whole-image

@@ -15,10 +15,6 @@ from typing import Any, Mapping
 
 from .config import EnhanceConfig, FeatureConfig, StitchConfig
 
-#: JAX field name -> port field name (the only field that differs)
-RENAMED = {"use_pallas": "use_kernels"}
-
-
 def _as_dict(obj: Any) -> dict:
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
         return {f.name: getattr(obj, f.name) for f in dataclasses.fields(obj)}
@@ -31,11 +27,12 @@ def _as_dict(obj: Any) -> dict:
 def config_from_jax(obj_or_dict: Any) -> StitchConfig:
     """JAX ``StitchConfig`` (or its dict form) -> port ``StitchConfig``.
 
-    Unknown fields raise ``TypeError`` rather than being dropped, so a field
-    added to one package and not the other is caught at the first call.
+    Every JAX field keeps its name (``use_pallas`` included); the port's own
+    ``use_kernels`` keeps its default.  Unknown fields raise ``TypeError``
+    rather than being dropped, so a field added to one package and not the
+    other is caught at the first call.
     """
     d = _as_dict(obj_or_dict)
-    d = {RENAMED.get(k, k): v for k, v in d.items()}
     if "features" in d:
         d["features"] = FeatureConfig(**_as_dict(d["features"]))
     if "enhance" in d:

@@ -6,24 +6,33 @@ Port of ``imagestitch_tpu/core/feature_registration.py``:
     (reference: Stitcher.py:306-367), the VFSMS core.  Each frame is
     detected and described ONCE on the full frame, then every
     (direction, scale) attempt masks the keypoint pool to its search strip,
-    matches (K3) and takes the mode vote, and the host replays the
+    matches (K3) and votes, and the host replays the
     reference's sequential search over those results
     (core/registration.py).  With ``auto_upright`` the pool is upright and
     pairs it cannot register retry over an oriented pool of just their
     frames (``_oriented_fallback_incre``).
   * ``register_sequence_features`` — calculateOffsetForFeatureSearch
     (reference: Stitcher.py:260-304): every adjacent pair matched over
-    whole frames (K5) and mode-voted, with the same oriented retry.
+    whole frames (K5) and voted, with the same oriented retry;
+  * the strict per-ROI attempt (``strict_roi_detect``, and whenever
+    enhancement is on): every (direction, scale) attempt detects each
+    pair's strips with the XLA detector (``detect.detect_describe_image``),
+    after enhancing them, matches them (K5) and votes; the host replays it
+    through ``reg.AttemptCache`` (``_strict_attempt``).
 
-Pools, per frame (``pool_features``): the fused per-row-select pool (K1
-over the octave bands of the pyramid atlas, one call a frame, and K2 over
-the same atlas) for upright SURF with ``fused_select``;
-otherwise the score-map pool (K4 once a frame over the same bands, each
-octave's exact top-k from the survivors it compacts, sub-pixel refinement,
-global top-k, dense describe over the atlas), upright or oriented.
+Pools, per frame (``pool_features``), chosen as the JAX package chooses
+them on a TPU: with ``use_pallas``, the fused per-row-select pool (K1 over
+the octave bands of the pyramid atlas, one call a frame, and K2 over the
+same atlas) for upright SURF with ``fused_select``, otherwise the score-map
+pool (K4 once a frame over the same bands, each octave's exact top-k from
+the survivors it compacts, sub-pixel refinement, global top-k, dense
+describe over the atlas), upright or oriented; without ``use_pallas`` (and
+on the enhanced whole-image path), the XLA detector's pool.
 
-Slice of this port: SURF with the mode vote, no strict-ROI detection and no
-enhancement; ``check_supported`` raises for the rest.
+Every path votes by ``offset_calculate``: the mode, homography RANSAC
+(``ransac.py``, with each pair's key taken from the JAX package's batch
+and slot) or translation RANSAC.  ORB, SIFT, the box filter and the bf16
+detector raise (``check_supported``).
 """
 from __future__ import annotations
 
@@ -35,8 +44,8 @@ import torch
 import torch.nn.functional as F
 
 from ..config import StitchConfig, max_roi_scale
-from ..ops import roi
-from ..ops.features import describe, detect, match, vote
+from ..ops import enhance, roi
+from ..ops.features import describe, detect, match, ransac, vote
 from ..ops.kernels import describe as kdesc
 from ..ops.kernels import doh as kdoh
 from . import registration as reg
@@ -49,19 +58,20 @@ def check_supported(cfg: StitchConfig) -> None:
         return      # the phase paths read no feature, enhance or vote knob
     f = cfg.features
     todo = []
-    if f.strict_roi_detect or cfg.enhance.enabled:
-        todo.append("strict_roi_detect / enhance (ROADMAP Queue 1 item 15)")
     if f.box_filter or f.method != "surf":
         todo.append(f"method={f.method!r} / box_filter (ROADMAP Queue 1 "
                     f"item 17)")
-    if cfg.offset_calculate != "mode":
-        todo.append(f"offset_calculate={cfg.offset_calculate!r} (ROADMAP "
-                    f"Queue 1 item 16)")
     if cfg.compute_dtype != "float32":
         todo.append(f"compute_dtype={cfg.compute_dtype!r} (a TPU-only knob "
                     f"on ROADMAP's do-not-port list)")
     if todo:
         raise NotImplementedError("not ported yet: " + "; ".join(todo))
+
+
+def _enhance_mode(cfg: StitchConfig) -> str:
+    if not cfg.enhance.enabled:
+        return "none"
+    return "clahe" if cfg.enhance.use_clahe else "equalize"
 
 
 def _families(cfg: StitchConfig) -> Tuple[str, str, str]:
@@ -255,11 +265,104 @@ def score_map_pool(img: torch.Tensor, max_kp: int,
         pad = lambda a: F.pad(a, (0, max_kp - a.shape[0]))
         rows, cols, scores, r_loc, c_loc, oct_ids = (
             pad(a) for a in (rows, cols, scores, r_loc, c_loc, oct_ids))
-    top_s, top_i = kdoh._top_k_stable(scores, max_kp)
+    top_s, top_i = detect.top_k_stable(scores, max_kp)
     descs = describe.describe_from_atlas(
         atlas, [b[0] for b in bands], r_loc[top_i], c_loc[top_i],
         oct_ids[top_i], sparams)
     return rows[top_i], cols[top_i], top_s, descs
+
+
+def _vote(vote_method: str, rows_a, cols_a, rows_b, cols_b, train_idx, ok,
+          draws=None):
+    """Per-pair (drow, dcol, votes, any_valid) of matched keypoint sets by
+    ``vote_method`` (the mode, homography RANSAC keyed by ``draws``, or
+    translation RANSAC); offsets are integers."""
+    if vote_method == "ransac":
+        ti = train_idx.long()
+        dr, dc, nv, av, _, _ = ransac.ransac_homography_batch(
+            rows_a, cols_a, rows_b.gather(-1, ti), cols_b.gather(-1, ti), ok,
+            draws=draws)
+        return dr, dc, nv, av
+    d_row, d_col, v = vote.displacement_from_matches(
+        rows_a, cols_a, rows_b, cols_b, train_idx, ok)
+    if vote_method == "ransac_translation":
+        return vote.ransac_translation_batch(d_row, d_col, v)
+    return vote.mode_vote_batch(d_row, d_col, v)
+
+
+def _feature_attempt_pairs(a: torch.Tensor, b: torch.Tensor, direction: int,
+                           ratio: float, max_kp: int,
+                           dparams: detect.DetectParams,
+                           sparams: describe.DescribeParams, metric: str,
+                           search_ratio: float, max_distance: float,
+                           vote_method: str = "mode",
+                           enhance_mode: str = "none",
+                           enhance_clip: float = 20.0, enhance_tiles: int = 5,
+                           use_kernels: bool = True):
+    """One (direction, scale) attempt for a batch of explicit (A, B) pairs
+    (port of ``_feature_attempt_pairs_jit``): the facing strips, enhanced
+    in place when asked (reference Stitcher.py:327-334), each detected and
+    described by the XLA detector, matched (K5 on the card) and voted.
+
+    a, b: (C, H, W) uint8 batches (pair k = a[k] vs b[k]).  Returns per-pair
+    (drow_strip, dcol_strip, votes, any_valid), each (C,); RANSAC keys pair
+    k by slot k of a C-pair call, as the JAX package's chunk does."""
+    ra, rb = roi.extract_strips(a, b, direction, ratio)
+    if enhance_mode != "none":
+        ra = enhance.enhance_batch(ra, enhance_mode == "clahe",
+                                   enhance_clip, enhance_tiles)
+        rb = enhance.enhance_batch(rb, enhance_mode == "clahe",
+                                   enhance_clip, enhance_tiles)
+    fused = lambda ims: [detect.detect_describe_image(im, max_kp, dparams,
+                                                      sparams) for im in ims]
+    stack = lambda per: tuple(torch.stack([q[j] for q in per])
+                              for j in range(4))
+    rows_a, cols_a, sc_a, da = stack(fused(ra))
+    rows_b, cols_b, sc_b, db = stack(fused(rb))
+    train_idx, ok = match.match_batch(da, db, sc_a > 0, sc_b > 0,
+                                      search_ratio, max_distance, metric,
+                                      use_kernel=use_kernels)
+    return _vote(vote_method, rows_a, cols_a, rows_b, cols_b, train_idx, ok)
+
+
+def _strict_attempt(images: torch.Tensor, direction: int, ratio: float,
+                    idx: np.ndarray, cfg: StitchConfig
+                    ) -> Dict[str, np.ndarray]:
+    """Per-ROI detection attempt for an explicit pair subset (strict parity
+    mode: the detector sees exactly the strip, as the reference's does), in
+    the JAX package's chunks of pairs: each padded to its power-of-two
+    bucket, which RANSAC's keys depend on."""
+    _, _, metric = _families(cfg)
+    dparams = _detect_params(cfg)
+    sparams = _describe_params(cfg)
+    h, w = images.shape[1:3]
+    max_kp = _capacity(cfg, cfg.features.max_keypoints)
+    if direction in (1, 3):
+        strip_px = roi.strip_length(h, ratio) * w
+    else:
+        strip_px = h * roi.strip_length(w, ratio)
+    dist_chunk = max(1, (1 << 28) // (4 * max_kp * max_kp))
+    conv_chunk = max(1, (12 << 30) // (strip_px * 4 * 100))
+    chunk = cfg.pair_batch or min(dist_chunk, conv_chunk)
+    emode = _enhance_mode(cfg)
+    out = {"drow": [], "dcol": [], "votes": [], "nz": []}
+    for s in range(0, len(idx), chunk):
+        sub, keep = reg.pad_indices(idx[s:s + chunk])
+        sub_t = torch.as_tensor(sub, dtype=torch.long, device=images.device)
+        dr, dc, nv, av = (t.cpu().numpy()[:keep] for t in
+                          _feature_attempt_pairs(
+            images[sub_t], images[sub_t + 1], direction, ratio, max_kp,
+            dparams, sparams, metric, cfg.features.search_ratio,
+            _effective_max_distance(cfg), vote_method=cfg.offset_calculate,
+            enhance_mode=emode, enhance_clip=cfg.enhance.clip_limit,
+            enhance_tiles=cfg.enhance.tile_size,
+            use_kernels=cfg.use_kernels))
+        out["drow"].append(dr)
+        out["dcol"].append(dc)
+        out["votes"].append(nv)
+        # "nz": votes with the empty-displacement floor zeroed out
+        out["nz"].append(np.where(av, nv, 0))
+    return {k: np.concatenate(v) for k, v in out.items()}
 
 
 def _fused_select_ok(dparams: detect.DetectParams,
@@ -271,16 +374,22 @@ def _fused_select_ok(dparams: detect.DetectParams,
 
 def pool_features(images: torch.Tensor, dparams: detect.DetectParams,
                   sparams: describe.DescribeParams, max_pool: int = 6144,
-                  fused_select: bool = True, use_kernels: bool = True):
+                  fused_select: bool = True, use_kernels: bool = True,
+                  use_pallas: bool = True):
     """Detect+describe every frame of an (N, H, W) batch, one frame at a
     time -> (rows, cols, scores) (N, P) and descs (N, P, D).
 
-    Upright SURF with ``fused_select`` takes the fused pool (K1 + K2,
-    P = structural capacity); anything else the score-map pool (K4,
-    P = ``max_pool``), as the JAX package's per-frame dispatch does on the
-    TPU (_pool_features_jit)."""
+    As the JAX package's per-frame dispatch (_pool_features_jit) picks on
+    the TPU: with ``use_pallas``, upright SURF with ``fused_select`` takes
+    the fused pool (K1 + K2, P = structural capacity) and anything else the
+    score-map pool (K4, P = ``max_pool``); without it, every frame takes
+    the XLA detector (``detect.detect_describe_image``, P = ``max_pool``).
+    """
     n = images.shape[0]
-    if fused_select and _fused_select_ok(dparams, sparams):
+    if not use_pallas:
+        per = [detect.detect_describe_image(images[i], max_pool, dparams,
+                                            sparams) for i in range(n)]
+    elif fused_select and _fused_select_ok(dparams, sparams):
         per = [detect_describe_image(images[i], dparams, sparams, use_kernels)
                for i in range(n)]
     else:
@@ -302,7 +411,8 @@ def _precompute_pool(images: torch.Tensor, cfg: StitchConfig):
     return pool_features(images, _detect_params(cfg), _describe_params(cfg),
                          max_pool=_capacity(cfg, cfg.features.pool_keypoints),
                          fused_select=cfg.features.fused_select,
-                         use_kernels=cfg.use_kernels)
+                         use_kernels=cfg.use_kernels,
+                         use_pallas=cfg.use_pallas)
 
 
 def _strip_bounds(direction: int, order: str, ratio: float, h: int, w: int):
@@ -337,14 +447,21 @@ def _select_strip(pool, frames: torch.Tensor, bounds, k_sel: int):
 
 def _pool_attempt_multi(pool, idx: torch.Tensor, bounds_list, k_sel: int,
                         metric: str, search_ratio: float,
-                        max_distance: float, use_kernels: bool
-                        ) -> torch.Tensor:
+                        max_distance: float, use_kernels: bool,
+                        vote_method: str = "mode") -> torch.Tensor:
     """Several (direction, scale) attempts for pair subset ``idx`` in one
-    pass: one matcher call over configs x pairs, then the mode vote and the
-    sub-pixel refinement.  Returns a PACKED (n_configs, 6, P) float32
-    tensor — rows drow, dcol, votes, sub_r, sub_c, any_valid — so that the
-    replay reads the host once per dispatch.  Offsets are FULL-image
-    offsets (margin correction pre-cancelled)."""
+    pass: one matcher call over configs x pairs, then the vote.  Returns a
+    PACKED (n_configs, 6, P) float32 tensor — rows drow, dcol, votes,
+    sub_r, sub_c, any_valid — so that the replay reads the host once per
+    dispatch.  Offsets are FULL-image offsets (margin correction
+    pre-cancelled).
+
+    ``vote_method``: the mode vote with its sub-pixel refinement; "ransac",
+    homography RANSAC fit in STRIP-LOCAL coordinates as the reference fits
+    it, the strip margins re-added after, each pair keyed by its slot in
+    the JAX package's call over the P pairs of one config; or
+    "ransac_translation", whose integer offsets are also its sub-pixel
+    ones."""
     sides = [(_select_strip(pool, idx, ba, k_sel),
               _select_strip(pool, idx + 1, bb, k_sel))
              for ba, bb in bounds_list]
@@ -354,10 +471,29 @@ def _pool_attempt_multi(pool, idx: torch.Tensor, bounds_list, k_sel: int,
     _, ok, rb_sel, cb_sel = match.match_batch_coords(
         da, db, va, vb, rb, cb, search_ratio, max_distance, metric,
         use_kernel=use_kernels)
-    d_row, d_col, v = vote.displacement_from_coords(ra, ca, rb_sel, cb_sel, ok)
-    dr, dc, nv, av = vote.mode_vote_batch(d_row, d_col, v)
-    sr, sc = vote.subpixel_refine_batch(d_row, d_col, ra - rb_sel,
-                                        ca - cb_sel, v, dr, dc)
+    if vote_method == "ransac":
+        p = idx.shape[0]
+        # each config's strip origins (A row, A col, B row, B col),
+        # repeated over its P pairs
+        org = torch.tensor([[ba[0], ba[2], bb[0], bb[2]]
+                            for ba, bb in bounds_list], dtype=torch.float32,
+                           device=ra.device).repeat_interleave(p, dim=0)
+        dr, dc, nv, av, sr, sc = ransac.ransac_homography_batch(
+            ra - org[:, 0:1], ca - org[:, 1:2], rb_sel - org[:, 2:3],
+            cb_sel - org[:, 3:4], ok,
+            draws=[(p, j) for _ in bounds_list for j in range(p)])
+        mr, mc = org[:, 0] - org[:, 2], org[:, 1] - org[:, 3]
+        dr, dc, sr, sc = dr + mr, dc + mc, sr + mr, sc + mc
+    else:
+        d_row, d_col, v = vote.displacement_from_coords(ra, ca, rb_sel,
+                                                        cb_sel, ok)
+        if vote_method == "ransac_translation":
+            dr, dc, nv, av = vote.ransac_translation_batch(d_row, d_col, v)
+            sr, sc = dr.to(torch.float32), dc.to(torch.float32)
+        else:
+            dr, dc, nv, av = vote.mode_vote_batch(d_row, d_col, v)
+            sr, sc = vote.subpixel_refine_batch(d_row, d_col, ra - rb_sel,
+                                                ca - cb_sel, v, dr, dc)
     packed = torch.stack([dr.to(torch.float32), dc.to(torch.float32),
                           nv.to(torch.float32), sr, sc,
                           av.to(torch.float32)])            # (6, C*P)
@@ -412,7 +548,7 @@ class _PooledCache:
                                             device=dev), bounds,
                 _capacity(cfg, cfg.features.max_keypoints), self._metric,
                 cfg.features.search_ratio, _effective_max_distance(cfg),
-                cfg.use_kernels).cpu().numpy()
+                cfg.use_kernels, cfg.offset_calculate).cpu().numpy()
             self.dispatches += 1
             self.attempts_matched += len(idx_p) * len(configs)
             for (d, s), pk in zip(configs, results):
@@ -511,13 +647,27 @@ def register_sequence_features_incre(images, cfg: StitchConfig,
                                      ) -> List[reg.PairRegistration]:
     """Incremental ROI feature search over an (N, H, W) grayscale batch: a
     tensor registers where it lies, numpy frames on ``device`` (the card
-    unless the caller passes ``device="cpu"``)."""
+    unless the caller passes ``device="cpu"``).
+
+    Default engine: the pooled fast path (detect once per frame).
+    ``strict_roi_detect``, or any enhancement, takes the reference's
+    per-ROI detection (``_strict_attempt``)."""
     check_supported(cfg)
     images = reg._as_images(images, device,
                             "register_sequence_features_incre")
     n, h, w = images.shape
     if n < 2:
         return []
+    if cfg.features.strict_roi_detect or _enhance_mode(cfg) != "none":
+        cache = reg.AttemptCache(
+            lambda direction, ratio, idx: _strict_attempt(
+                images, direction, ratio, idx, cfg))
+        accept = lambda res: bool(res["votes"] >= cfg.offset_evaluate)
+        # already integer strip offsets; confidence = floor-zeroed votes
+        extract = lambda res: (float(res["drow"]), float(res["dcol"]),
+                               float(res["nz"]))
+        return reg._replay_incremental(n - 1, cfg, cache, accept, extract,
+                                       (h, w), offsets_are_full=False)
     # upright-first (auto_upright): the upright pool registers translation
     # -only stages; the pairs it cannot register retry with orientation
     fast = cfg.features.auto_upright and not cfg.features.upright
@@ -533,11 +683,16 @@ def register_sequence_features_incre(images, cfg: StitchConfig,
 def _match_vote_adjacent(pool, ia: np.ndarray, cfg: StitchConfig,
                          metric: str) -> List[reg.PairRegistration]:
     """Match + vote frame pairs (ia[k], ia[k] + 1) of a pooled feature set
-    (``ia``: pool indices of each pair's A frame)."""
+    (``ia``: pool indices of each pair's A frame).  RANSAC keys each pair
+    by its slot in the JAX package's chunk of ``(1 << 28) // (4 K^2)``
+    pairs, whatever the chunk here."""
     rows, cols, scores, descs = pool
     valid = scores > 0
     out: List[reg.PairRegistration] = []
     max_kp = descs.shape[1]
+    jax_chunk = max(1, (1 << 28) // (4 * max_kp * max_kp))
+    draws = [(min(jax_chunk, len(ia) - s0), i - s0)
+             for i in range(len(ia)) for s0 in [i - i % jax_chunk]]
     # pairs per matcher call: the plain version holds a Ka x Kb distance
     # matrix a pair, the kernel only its gathered inputs (2 x Ka x D floats
     # a pair), so on the kernel route every pair of a sequence goes in one
@@ -545,7 +700,7 @@ def _match_vote_adjacent(pool, ia: np.ndarray, cfg: StitchConfig,
     if descs.is_cuda and cfg.use_kernels:
         pchunk = max(1, (1 << 30) // (8 * max_kp * descs.shape[2]))
     else:
-        pchunk = max(1, (1 << 28) // (4 * max_kp * max_kp))
+        pchunk = jax_chunk
     for s in range(0, len(ia), pchunk):
         sub = torch.as_tensor(ia[s:s + pchunk], dtype=torch.long,
                               device=descs.device)
@@ -553,10 +708,9 @@ def _match_vote_adjacent(pool, ia: np.ndarray, cfg: StitchConfig,
             descs[sub], descs[sub + 1], valid[sub], valid[sub + 1],
             cfg.features.search_ratio, _effective_max_distance(cfg), metric,
             use_kernel=cfg.use_kernels)
-        d_row, d_col, v = vote.displacement_from_matches(
-            rows[sub], cols[sub], rows[sub + 1], cols[sub + 1], ti, ok)
-        dr, dc, nv, av = (t.cpu().numpy()
-                          for t in vote.mode_vote_batch(d_row, d_col, v))
+        dr, dc, nv, av = (t.cpu().numpy() for t in _vote(
+            cfg.offset_calculate, rows[sub], cols[sub], rows[sub + 1],
+            cols[sub + 1], ti, ok, draws[s:s + len(sub)]))
         for k in range(len(sub)):
             okk = bool(nv[k] >= cfg.offset_evaluate)
             out.append(reg.PairRegistration(
@@ -578,10 +732,11 @@ def register_sequence_features(images, cfg: StitchConfig, device="cuda"
     numpy frames on ``device`` (the card unless ``device="cpu"``).
 
     Each frame is detected and described once (max_keypoints slots where
-    the score-map pool runs); adjacent pairs are then matched and
-    mode-voted.  With ``auto_upright`` the pool is upright first, and pairs
-    that fail with some valid match retry over an oriented pool of their
-    frames."""
+    the score-map or the XLA pool runs); adjacent pairs are then matched
+    and voted by ``offset_calculate``.  With enhancement the frames are
+    enhanced first and take the XLA pool, as in the JAX package.  With
+    ``auto_upright`` the pool is upright first, and pairs that fail with
+    some valid match retry over an oriented pool of their frames."""
     check_supported(cfg)
     images = reg._as_images(images, device, "register_sequence_features")
     n = images.shape[0]
@@ -591,12 +746,20 @@ def register_sequence_features(images, cfg: StitchConfig, device="cuda"
     dparams = _detect_params(cfg)
     sparams = _describe_params(cfg)
     max_kp = _capacity(cfg, cfg.features.max_keypoints)
+    emode = _enhance_mode(cfg)
+    if emode != "none":
+        # the reference enhances whole images on this path
+        # (Stitcher.py:269-276); the enhanced frames take the XLA pool
+        images = enhance.enhance_batch(images, emode == "clahe",
+                                       cfg.enhance.clip_limit,
+                                       cfg.enhance.tile_size)
     fast = cfg.features.auto_upright and not cfg.features.upright
     sparams_fast = dataclasses.replace(sparams, upright=True) if fast \
         else sparams
     pool_of = lambda ims, sp: pool_features(
         ims, dparams, sp, max_pool=max_kp,
-        fused_select=cfg.features.fused_select, use_kernels=cfg.use_kernels)
+        fused_select=cfg.features.fused_select, use_kernels=cfg.use_kernels,
+        use_pallas=cfg.use_pallas and emode == "none")
     out = _match_vote_adjacent(pool_of(images, sparams_fast), np.arange(n - 1),
                                cfg, metric)
     failed = [k for k, r in enumerate(out)

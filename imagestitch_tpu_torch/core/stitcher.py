@@ -209,13 +209,16 @@ class Stitcher:
     def stitch_files(self, files: Sequence[str]) -> List[StitchResult]:
         """Stitch a file sequence with pipelined ingest: decode of chunk
         k+1 overlaps the copy to the device and the device work of chunk k.
-        On the gray ``feature_incre`` path without checkpoints the decode
-        overlaps the pool itself (io/prefetch.register_sequence_pipelined);
+        On the gray pooled ``feature_incre`` path (no strict-ROI detection,
+        no enhancement) without checkpoints the decode overlaps the pool
+        itself (io/prefetch.register_sequence_pipelined);
         the other strategies register the loaded batch."""
         from ..io import prefetch
         cfg = self.cfg
         if (cfg.registration == "feature_incre"
-                and self.checkpoint_dir is None and not cfg.color_mode):
+                and self.checkpoint_dir is None
+                and not cfg.features.strict_roi_detect
+                and not cfg.enhance.enabled and not cfg.color_mode):
             recs, gray_dev, gray_host = prefetch.register_sequence_pipelined(
                 files, cfg.replace(direction=self._direction),
                 keep_host=cfg.stream_output, device=self.device)

@@ -1,7 +1,9 @@
-"""Displacement voting: the reference's 2-D mode rule.
+"""Displacement voting: the reference's 2-D mode rule and translation
+RANSAC.
 
-Port of ``imagestitch_tpu/ops/features/vote.py:25-127`` (the mode vote, the
-sub-pixel refinement and the displacements), exact semantics of
+Port of ``imagestitch_tpu/ops/features/vote.py`` (the mode vote, the
+sub-pixel refinement, the displacements and ``ransac_translation_batch``),
+exact semantics of
 ``getOffsetByMode`` (reference: ImageUtility.py:139-178):
 
   * per-match displacement = int-truncated keypoint difference (toward zero),
@@ -87,3 +89,62 @@ def subpixel_refine_batch(d_row, d_col, dr_f, dc_f, valid, mode_r, mode_c):
     any_ = inl.any(dim=-1)
     return (torch.where(any_, mr, mode_r.to(torch.float32)),
             torch.where(any_, mc, mode_c.to(torch.float32)))
+
+
+def _xla_sum(x: torch.Tensor) -> torch.Tensor:
+    """float32 sum over the last axis in the order of XLA's CPU code, which
+    rewrites a long reduction into windows of 32 summed in order from 0
+    (each level padded at both ends to whole windows, the low end getting
+    the smaller half), until 32 or fewer remain; order matters once the
+    sum passes 2^24."""
+    def ordered(t):
+        s = torch.zeros(t.shape[:-1], dtype=t.dtype, device=t.device)
+        for i in range(t.shape[-1]):
+            s = s + t[..., i]
+        return s
+
+    while x.shape[-1] > 32:
+        n = x.shape[-1]
+        w = -(-n // 32)
+        pad = w * 32 - n
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        x = ordered(x.reshape(*x.shape[:-1], w, 32))
+    return ordered(x)
+
+
+#: match pairs (K x K booleans each) a ``ransac_translation_batch`` step
+#: holds at once
+_TRANSLATION_CHUNK = 1 << 27
+
+
+def ransac_translation_batch(d_row: torch.Tensor, d_col: torch.Tensor,
+                             valid: torch.Tensor, tol: int = 3):
+    """Translation consensus over (P, K) truncated displacements (port of
+    ``vote.py:130-159``): every valid match proposes its displacement, its
+    inliers are the valid matches within ``tol`` in both axes, the first
+    proposal with the most inliers wins, and the offset is the inlier mean
+    (float32, XLA's summation order, rounded half to even).  Returns
+    ``(drow, dcol, inlier_count, any_valid)``; with no valid match the
+    count is 0."""
+    p, k = d_row.shape
+    step = max(1, _TRANSLATION_CHUNK // max(k * k, 1))
+    out = []
+    for s in range(0, p, step):
+        drf = d_row[s:s + step].to(torch.float32)
+        dcf = d_col[s:s + step].to(torch.float32)
+        v = valid[s:s + step]
+        close = (((drf[:, :, None] - drf[:, None, :]).abs() <= tol)
+                 & ((dcf[:, :, None] - dcf[:, None, :]).abs() <= tol)
+                 & v[:, None, :])
+        counts = torch.where(v, close.sum(-1), torch.zeros_like(d_row[:1]))
+        win = torch.argmax(counts, dim=-1, keepdim=True)        # first max
+        inl = close.gather(1, win[..., None].expand(-1, 1, k))[:, 0] & v
+        n = counts.gather(1, win)[:, 0]
+        den = torch.clamp_min(n, 1).to(torch.float32)
+        zero = torch.zeros_like(drf)
+        mr = _xla_sum(torch.where(inl, drf, zero)) / den
+        mc = _xla_sum(torch.where(inl, dcf, zero)) / den
+        out.append((torch.round(mr).to(torch.int32),
+                    torch.round(mc).to(torch.int32), n.to(torch.int32),
+                    v.any(dim=-1)))
+    return tuple(torch.cat([o[j] for o in out]) for j in range(4))

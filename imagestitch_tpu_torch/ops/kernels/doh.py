@@ -36,6 +36,7 @@ import torch
 
 from ..features.detect import (_corr_cols, _corr_rows, _edge_pad,
                                _gauss_kernels, axis_offset)
+from ..features.detect import top_k_stable as _top_k_stable
 
 #: calls of the K1 kernel (one per frame) since the counter was last set to 0
 LAUNCHES = 0
@@ -272,13 +273,6 @@ def doh_score_map_plain(image: torch.Tensor, threshold: float = 10.0,
     h, w = x.shape
     resp = _response_ring(x, _scale_taps(base_sigma, n_scales, spacing))
     return _nms_score(resp, border, threshold), resp[1:1 + h, 1:1 + w]
-
-
-def _top_k_stable(x: torch.Tensor, k: int):
-    """The ``k`` largest of a 1-D tensor, ties by lower index first (the
-    order of lax.top_k, and of approx_max_k on the CPU)."""
-    s, i = torch.sort(x, descending=True, stable=True)
-    return s[:k], i[:k]
 
 
 #: a survivor's key: band << 60 | (0x7FFFFFFF - bits(score)) << 29 | flat

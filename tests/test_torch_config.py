@@ -1,4 +1,5 @@
-"""Port config against the JAX package: the same fields (one rename) and
+"""Port config against the JAX package: the same fields (``use_pallas``
+under its own name) plus the port's own ``use_kernels``, and
 config_from_jax.  The constant tables are in test_torch_tables.py."""
 import dataclasses
 
@@ -7,7 +8,10 @@ import pytest
 from imagestitch_tpu import config as jconfig
 
 from imagestitch_tpu_torch import config as tconfig
-from imagestitch_tpu_torch.convert import RENAMED, config_from_jax
+from imagestitch_tpu_torch.convert import config_from_jax
+
+#: fields of the port that the JAX package does not have
+PORT_ONLY = {"StitchConfig": ["use_kernels"]}
 
 
 def _fields(cls):
@@ -20,11 +24,12 @@ def _fields(cls):
 def test_field_sets_differ_only_by_rename(name):
     jf = _fields(getattr(jconfig, name))
     tf = _fields(getattr(tconfig, name))
-    renamed = {RENAMED.get(k, k): v for k, v in jf.items()}
-    assert renamed == tf
-    assert [f.name for f in dataclasses.fields(getattr(tconfig, name))] == \
-        [RENAMED.get(f.name, f.name)
-         for f in dataclasses.fields(getattr(jconfig, name))]
+    own = PORT_ONLY.get(name, [])
+    assert {k: v for k, v in tf.items() if k not in own} == jf
+    assert tf.get("use_kernels", True) is True
+    assert [f.name for f in dataclasses.fields(getattr(tconfig, name))
+            if f.name not in own] == \
+        [f.name for f in dataclasses.fields(getattr(jconfig, name))]
 
 
 def test_helpers_match():
@@ -49,7 +54,7 @@ def test_config_from_jax(as_dict):
     src = dataclasses.asdict(jcfg) if as_dict else jcfg
     cfg = config_from_jax(src)
     assert isinstance(cfg, tconfig.StitchConfig)
-    assert cfg.use_kernels is False
+    assert cfg.use_pallas is False and cfg.use_kernels is True
     assert cfg.direction == 2 and cfg.direct_incre == -1
     assert cfg.features == tconfig.FeatureConfig(
         upright=True, max_keypoints=256, hessian_threshold=12.5)
