@@ -137,6 +137,31 @@ Phases, one line of output each:
                 K4's fallback does not run); on (o) within 5 px (the
                 translation column of a homography fit over whole
                 frames).  One line a path with its warm walls.
+  10. families and solver — on the feature set through
+                Stitcher.stitch_batch, as phase 8's paths are checked:
+                (p) feature_incre, method="sift" (11 frames): the
+                    score-map pool (K4 once a frame), K3 on the 128-dim
+                    SIFT descriptors, the oriented fallback of pair 9 (K4
+                    over its 2 frames);
+                (q) feature_incre, method="orb" (11 frames): the XLA
+                    corner pool (FAST-9, Harris, the linear-resize
+                    pyramid, BRIEF bits) and Hamming matches; no kernel;
+                    within 2 px of the truth (the truncated mean of
+                    ORB's displacements, 0.6 px low, as in jax);
+                (r) feature_incre, box_filter=True (11 frames): the XLA
+                    box-filter pool, then K3;
+                (s) feature_incre, use_global_solver=True (the first 10
+                    frames): the fused pool (K1, K2), K3, loop closure,
+                    the pose-graph solve and compose_from_positions; then
+                    the solve again on the card and the CPU from the
+                    card's records (at least one loop edge, the same
+                    edges, positions within 1e-2 px and equal once
+                    rounded, the card's solve equal from run to run, the
+                    panorama the CPU composer's from the CPU's positions)
+                    and the CLI with --use-solver --stream-output on the
+                    11 color PNGs (the solved segment through
+                    compose_host_positions; the files decode to a
+                    stitch_files run's panoramas).
   9. pool split — (b)'s score-map pool once more: its device ms a frame
                 by stage (torch.profiler, tools/torch_pool_split.py) and
                 the card's busy share; last, because the profiler slows
@@ -1249,6 +1274,7 @@ def main():
         sub, _ = hold(label, card.records, cpu.records, "the CPU run")
         print(f"slice {label}: integer records == the CPU run's on the "
               f"first {n_cpu} frames, sub-pixel within {sub:.3g} px")
+        return st, res
 
     from imagestitch_tpu_torch import EnhanceConfig
     no_pool = {"doh_select": 0, "describe_atlas": 0, "doh_score_map": 0}
@@ -1274,6 +1300,104 @@ def main():
         registration="feature", offset_calculate="ransac",
         enhance=EnhanceConfig(enabled=True), features=FeatureConfig()), 11,
         dict(no_pool, top2_l2=None, top2_l2_coords=0), 4, px=5)
+
+    # ---- 10. the other detector and descriptor families and the global
+    # solver: paths (p)-(s) on the feature set
+    from imagestitch_tpu_torch.solver import loop_closure, pose_graph
+    slice_path("(p) feature_incre sift", base.replace(
+        features=FeatureConfig(method="sift")), 11,
+        dict(no_pool, doh_score_map=None, top2_l2_coords=None, top2_l2=0), 4)
+    # (q): ORB's matched displacements average about 0.6 px below the
+    # truth on these frames (the JAX package's too: 1789.81 for 1790.37 on
+    # pair 0), and the replay truncates the mean, so the integer offsets
+    # lie up to 1.4 px from the truth
+    slice_path("(q) feature_incre orb", base.replace(
+        features=FeatureConfig(method="orb")), 11,
+        dict(no_pool, top2_l2_coords=0, top2_l2=0), 4, px=2)
+    slice_path("(r) feature_incre box_filter", base.replace(
+        features=FeatureConfig(box_filter=True)), 11,
+        dict(no_pool, top2_l2_coords=None, top2_l2=0), 4)
+    cfg_s = base.replace(use_global_solver=True, features=FeatureConfig())
+    st, res = slice_path("(s) feature_incre use_global_solver", cfg_s, 10,
+                         {"doh_select": 10, "describe_atlas": 10,
+                          "top2_l2_coords": None, "doh_score_map": 0,
+                          "top2_l2": 0}, 4)
+    # the solve once more, on the card and on the CPU, from the card's
+    # records: positions within 1e-2 px and equal once rounded, the
+    # panorama the CPU composer's from the CPU's positions
+    subpix = [r.offset_subpix for r in st.records]
+    conf = [max(r.confidence, 1e-3) for r in st.records]
+    chain = pose_graph.chain_positions(subpix)
+    solved = []
+    for where, imgs in ((dev, gray[:10]), ("cpu", frames[:10])):
+        graph, n_loop = loop_closure.close_loops(
+            imgs, pose_graph.PoseGraph.from_chain(subpix, conf), chain,
+            (h, w), device=where)
+        pos, _, ms = timed(torch, lambda: pose_graph.solve(graph,
+                                                           device=where))
+        solved.append((n_loop, pos, ms, graph))
+    (n_card, pos_card, solve_ms, g_card), (n_cpu, pos_cpu, _, _) = solved
+    pos_gap = float(np.abs(pos_card - pos_cpu).max())
+    if n_card < 1 or n_card != n_cpu or pos_gap > 1e-2 or not \
+            np.array_equal(np.round(pos_card.astype(np.float64)),
+                           np.round(pos_cpu.astype(np.float64))):
+        raise AssertionError(f"(s): {n_card} loop edges on the card, "
+                             f"{n_cpu} on the CPU; positions {pos_gap} px "
+                             f"apart")
+    cpu_pano = compose_mod.compose_from_positions(frames[:10], pos_cpu,
+                                                  cfg_s, device="cpu")
+    if not np.array_equal(res[0].image, cpu_pano):
+        raise AssertionError("(s): the panorama differs from the CPU "
+                             "composer's from the CPU's positions")
+    if pose_graph.solve(g_card, device=dev).tobytes() != pos_card.tobytes():
+        raise AssertionError("(s): the card's solve differs from run to run")
+    # the CLI on the 11 color PNGs with the solver and host output: the
+    # solved segment through compose_host_positions
+    host_calls = []
+    orig_host = stream_out.compose_host_positions
+
+    def counted_host(*a, **kw):
+        host_calls.append(a[0].shape)
+        return orig_host(*a, **kw)
+
+    stream_out.compose_host_positions = counted_host
+    work = tempfile.mkdtemp(prefix="chip_smoke_s_")
+    try:
+        proj = os.path.join(work, "proj")
+        for i, im in enumerate(colors):
+            codec.imwrite(os.path.join(proj, "1", f"tile_{i:02d}.png"), im)
+        files = dataset.list_project_images(proj, 1, "png")
+        out = os.path.join(work, "s")
+        argv = ["stitch", proj, out, "--device", "cuda", "--file-extension",
+                "png", "--output-extension", "png", "--use-solver",
+                "--stream-output", "--quiet"]
+        scfg = cli.config_from_args(cli.build_parser().parse_args(argv))
+        zero_counts()
+        t0 = time.perf_counter()
+        if cli.main(argv) != 0:
+            raise AssertionError("(s) CLI: returned nonzero")
+        wall_cli = time.perf_counter() - t0
+        read_counts("(s) CLI", {"doh_select": 11, "describe_atlas": 11,
+                                "top2_l2_coords": None})
+        if sorted(os.listdir(out)) != outputs or len(host_calls) != 1:
+            raise AssertionError(f"(s) CLI: wrote {sorted(os.listdir(out))}"
+                                 f", host composer calls {host_calls}")
+        res_cli = Stitcher(scfg, device=dev).stitch_files(files)
+        for name, r in zip(outputs, res_cli):
+            if not np.array_equal(codec.imread(os.path.join(out, name),
+                                               True), r.image):
+                raise AssertionError(f"(s) CLI: {name} differs from "
+                                     f"stitch_files' panorama")
+    finally:
+        stream_out.compose_host_positions = orig_host
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"solver (s): {n_card} loop-closure edges (card and CPU), "
+          f"positions card/CPU within {pos_gap:.3g} px and equal rounded, "
+          f"the card's solve {solve_ms:.1f} ms wall, equal from run to run; "
+          f"panorama {res[0].image.shape} == the CPU composer's from the "
+          f"CPU's positions; CLI --use-solver --stream-output {wall_cli:.3f}"
+          f" s -> {outputs} through compose_host_positions "
+          f"{host_calls[0]}, == stitch_files")
 
     # ---- 9. the score-map pool's device time a frame, by stage (path
     # (b)'s pool).  Last: after torch.profiler has traced the card, every

@@ -3,9 +3,11 @@
 Registration by all five strategies of the JAX package (pooled
 ``feature_incre`` with its oriented fallback, whole-image ``feature``,
 incremental and whole-image phase correlation, and ``hybrid``; upright or
-oriented SURF over the fused or the score-map pool; host replay of the
-reference's scale x direction search), on the card unless the caller
-asks for the CPU; composition in every fusion mode of the JAX package, in
+oriented SURF or SIFT over the fused or the score-map pool, box-filter
+SURF and ORB over the XLA detector; host replay of the reference's scale
+x direction search), on the card unless the caller asks for the CPU; the
+global pose-graph solver with loop closure (``solver/``); composition in
+every fusion mode of the JAX package, in
 color (the default) or gray (multiband and the optimal seam: gray only),
 on the device or, with ``stream_output``, on the host in float64;
 pipelined file ingest, registration checkpoints,
@@ -20,16 +22,16 @@ from .config import (EnhanceConfig, FeatureConfig, StitchConfig,
 from .core import registration
 from .core.compose import compose, compute_placement
 from .core.stitcher import Stitcher, StitchResult
-from .core.stream_out import compose_color_host, compose_host, compose_streamed
+from .core.stream_out import (compose_color_host, compose_host,
+                              compose_host_positions, compose_streamed)
 from .io.dataset import ImageBatch, load_batch
 
 __version__ = "0.1.0"
 
-# the JAX package's exports, in its order; compose_host_positions comes
-# with the global solver (ROADMAP Queue 1 item 20)
+# the JAX package's exports, in its order
 __all__ = [
     "StitchConfig", "FeatureConfig", "EnhanceConfig", "direction_increase",
     "Stitcher", "StitchResult", "compose", "compute_placement",
     "compose_streamed", "compose_color_host", "compose_host",
-    "registration",
+    "compose_host_positions", "registration",
 ]

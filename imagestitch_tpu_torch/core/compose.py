@@ -8,7 +8,9 @@ device tensor at its final size, (rows, cols) or (rows, cols, 3), with the
 reference's ``-1`` sentinel.  Each step pastes its frame in place and fuses
 the exact overlap rect against the canvas before and after the paste
 (Stitcher.py:440-486), in the reference's paste/fuse order; no shape
-buckets are needed because PyTorch runs eagerly.
+buckets are needed because PyTorch runs eagerly.  ``compose`` places the
+frames by pairwise offsets, ``compose_from_positions`` by the global
+solver's absolute positions; both run their steps through ``_run_steps``.
 """
 from __future__ import annotations
 
@@ -141,21 +143,14 @@ def _fuse_dispatch(roi_a, roi_b, drow: int, dcol: int, method: str,
     return blend.fuse_region(roi_a, roi_b, drow, dcol, method, color)
 
 
-def compose(images, offsets: Sequence[Tuple[int, int]], cfg: StitchConfig,
-            return_device: bool = False, device="cuda"):
-    """Compose a registered sequence into one uint8 panorama.
-
-    ``images``: (N, H, W) gray or (N, H, W, 3) BGR uint8.  A tensor composes
-    where it lies; numpy frames go to ``device``, the card unless the
-    caller passes ``device="cpu"`` (without CUDA the card raises).
-    ``offsets``: N-1 pairwise (drow, dcol) ints.  Returns the host numpy
-    panorama, or with ``return_device`` the uint8 tensor where it was
-    composed.  Parity
-    with Stitcher.py:440-486: image i fuses only against the occupancy rect
-    of image i-1, the fuse rect sees the canvas before and after pasting
-    image i, and fusion uses the pairwise offset.  Multiband and the
-    optimal seam raise ``ValueError`` on color frames, before any work.
-    """
+def _run_steps(steps, images, canvas_shape, pairwise, cfg: StitchConfig,
+               return_device: bool, device):
+    """Run paste/fuse ``steps`` over an int16 canvas of ``canvas_shape``
+    with the reference's ``-1`` sentinel: each step pastes its frame in
+    place and fuses the exact overlap rect against the canvas before and
+    after the paste, with the fusion ramp of ``pairwise[i]``.  A tensor
+    composes where it lies, numpy frames on ``device``.  Multiband and the
+    optimal seam raise ``ValueError`` on color frames, before any work."""
     if images.ndim == 4 and cfg.fuse_method in _GRAY_ONLY_METHODS:
         raise ValueError(f"fuse_method={cfg.fuse_method!r} composes gray "
                          f"frames only (the reference's), got color")
@@ -163,12 +158,8 @@ def compose(images, offsets: Sequence[Tuple[int, int]], cfg: StitchConfig,
         images = torch.as_tensor(images).to(resolve_device(device,
                                                            "compose"))
     color = images.dim() == 4
-    n, h, w = images.shape[:3]
-    if len(offsets) != n - 1:
-        raise ValueError(f"{len(offsets)} offsets for {n} images")
-    placement, steps, pairwise = plan_compose(offsets, (h, w), cfg)
-    rows, cols = placement.canvas_shape
-    canvas = torch.full((rows, cols) + tuple(images.shape[3:]), -1,
+    h, w = images.shape[1:3]
+    canvas = torch.full(tuple(canvas_shape) + tuple(images.shape[3:]), -1,
                         dtype=torch.int16, device=images.device)
     for kind, i, (r, c), rect, size in steps:
         img = images[i].to(torch.int16)
@@ -185,3 +176,68 @@ def compose(images, offsets: Sequence[Tuple[int, int]], cfg: StitchConfig,
                                   color))
     pano = canvas.clamp_(min=0).to(torch.uint8)   # -1 sentinel -> 0
     return pano if return_device else pano.cpu().numpy()
+
+
+def compose(images, offsets: Sequence[Tuple[int, int]], cfg: StitchConfig,
+            return_device: bool = False, device="cuda"):
+    """Compose a registered sequence into one uint8 panorama.
+
+    ``images``: (N, H, W) gray or (N, H, W, 3) BGR uint8.  A tensor composes
+    where it lies; numpy frames go to ``device``, the card unless the
+    caller passes ``device="cpu"`` (without CUDA the card raises).
+    ``offsets``: N-1 pairwise (drow, dcol) ints.  Returns the host numpy
+    panorama, or with ``return_device`` the uint8 tensor where it was
+    composed.  Parity
+    with Stitcher.py:440-486: image i fuses only against the occupancy rect
+    of image i-1, the fuse rect sees the canvas before and after pasting
+    image i, and fusion uses the pairwise offset.  Multiband and the
+    optimal seam raise ``ValueError`` on color frames, before any work.
+    """
+    n, h, w = images.shape[:3]
+    if len(offsets) != n - 1:
+        raise ValueError(f"{len(offsets)} offsets for {n} images")
+    placement, steps, pairwise = plan_compose(offsets, (h, w), cfg)
+    return _run_steps(steps, images, placement.canvas_shape, pairwise, cfg,
+                      return_device, device)
+
+
+def compose_from_positions(images, positions: np.ndarray, cfg: StitchConfig,
+                           return_device: bool = False, device="cuda"):
+    """Compose from ABSOLUTE tile positions (the global solver's output),
+    rounded half to even: every tile fuses against the previous tile's true
+    extent, the fusion ramp following the consecutive position delta.  A
+    tensor composes where it lies, numpy frames on ``device``."""
+    h, w = images.shape[1:3]
+    shape, steps, deltas = plan_compose_positions(positions, (h, w), cfg)
+    return _run_steps(steps, images, shape, deltas, cfg, return_device,
+                      device)
+
+
+def plan_compose_positions(positions: np.ndarray,
+                           image_shape: Tuple[int, int], cfg: StitchConfig):
+    """Canvas size + step classification for ABSOLUTE tile positions;
+    shared by the device and host composers.  Returns ``((rows, cols),
+    steps, deltas)``."""
+    h, w = image_shape
+    pos = np.round(np.asarray(positions, np.float64)).astype(np.int64)
+    pos -= pos.min(axis=0)
+    n = pos.shape[0]
+    rows = int(pos[:, 0].max()) + h
+    cols = int(pos[:, 1].max()) + w
+    deltas = [(0, 0)] + [tuple((pos[i] - pos[i - 1]).tolist())
+                         for i in range(1, n)]
+    steps = []
+    for i in range(n):
+        r, c = int(pos[i, 0]), int(pos[i, 1])
+        if i == 0 or cfg.fuse_method == "notFuse":
+            steps.append(("paste", i, (r, c), None, None))
+            continue
+        pr, pc = int(pos[i - 1, 0]), int(pos[i - 1, 1])
+        rr0, rc0 = max(r, pr), max(c, pc)
+        rr1, rc1 = min(r + h, pr + h), min(c + w, pc + w)
+        if rr1 - rr0 <= 0 or rc1 - rc0 <= 0:
+            steps.append(("paste", i, (r, c), None, None))
+        else:
+            steps.append(("fuse", i, (r, c), (rr0, rc0),
+                          (rr1 - rr0, rc1 - rc0)))
+    return (rows, cols), steps, deltas

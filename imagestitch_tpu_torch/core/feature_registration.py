@@ -23,16 +23,19 @@ Port of ``imagestitch_tpu/core/feature_registration.py``:
 Pools, per frame (``pool_features``), chosen as the JAX package chooses
 them on a TPU: with ``use_pallas``, the fused per-row-select pool (K1 over
 the octave bands of the pyramid atlas, one call a frame, and K2 over the
-same atlas) for upright SURF with ``fused_select``, otherwise the score-map
-pool (K4 once a frame over the same bands, each octave's exact top-k from
-the survivors it compacts, sub-pixel refinement, global top-k, dense
-describe over the atlas), upright or oriented; without ``use_pallas`` (and
-on the enhanced whole-image path), the XLA detector's pool.
+same atlas) for upright SURF with ``fused_select``, otherwise, for the
+Gaussian-DoH detector, the score-map pool (K4 once a frame over the same
+bands, each octave's exact top-k from the survivors it compacts,
+sub-pixel refinement, global top-k, dense describe over the atlas),
+upright or oriented, SURF or SIFT; the corner (ORB) and box-filter
+families, every pool without ``use_pallas`` and the enhanced whole-image
+path take the XLA detector's pool.
 
 Every path votes by ``offset_calculate``: the mode, homography RANSAC
 (``ransac.py``, with each pair's key taken from the JAX package's batch
-and slot) or translation RANSAC.  ORB, SIFT, the box filter and the bf16
-detector raise (``check_supported``).
+and slot) or translation RANSAC.  The featureMethod families: SURF and
+SIFT match by L2 (K3, K5), ORB by Hamming distance; the bf16 detector
+raises (``check_supported``).
 """
 from __future__ import annotations
 
@@ -56,16 +59,10 @@ def check_supported(cfg: StitchConfig) -> None:
     for a registration configuration outside the ported slice."""
     if cfg.registration in ("phase_incre", "phase"):
         return      # the phase paths read no feature, enhance or vote knob
-    f = cfg.features
-    todo = []
-    if f.box_filter or f.method != "surf":
-        todo.append(f"method={f.method!r} / box_filter (ROADMAP Queue 1 "
-                    f"item 17)")
     if cfg.compute_dtype != "float32":
-        todo.append(f"compute_dtype={cfg.compute_dtype!r} (a TPU-only knob "
-                    f"on ROADMAP's do-not-port list)")
-    if todo:
-        raise NotImplementedError("not ported yet: " + "; ".join(todo))
+        raise NotImplementedError(
+            f"not ported: compute_dtype={cfg.compute_dtype!r} (a TPU-only "
+            f"knob on ROADMAP's do-not-port list)")
 
 
 def _enhance_mode(cfg: StitchConfig) -> str:
@@ -381,17 +378,20 @@ def pool_features(images: torch.Tensor, dparams: detect.DetectParams,
 
     As the JAX package's per-frame dispatch (_pool_features_jit) picks on
     the TPU: with ``use_pallas``, upright SURF with ``fused_select`` takes
-    the fused pool (K1 + K2, P = structural capacity) and anything else the
-    score-map pool (K4, P = ``max_pool``); without it, every frame takes
-    the XLA detector (``detect.detect_describe_image``, P = ``max_pool``).
+    the fused pool (K1 + K2, P = structural capacity) and the other
+    Gaussian-DoH frames (oriented SURF, SIFT) the score-map pool (K4, P =
+    ``max_pool``); the corner (ORB) and box-filter families, and every
+    frame without ``use_pallas``, take the XLA detector
+    (``detect.detect_describe_image``, P = ``max_pool``).
     """
     n = images.shape[0]
-    if not use_pallas:
-        per = [detect.detect_describe_image(images[i], max_pool, dparams,
-                                            sparams) for i in range(n)]
-    elif fused_select and _fused_select_ok(dparams, sparams):
+    if fused_select and _fused_select_ok(dparams, sparams) and use_pallas:
         per = [detect_describe_image(images[i], dparams, sparams, use_kernels)
                for i in range(n)]
+    elif not (use_pallas and dparams.family == "hessian"
+              and not dparams.box_filter):
+        per = [detect.detect_describe_image(images[i], max_pool, dparams,
+                                            sparams) for i in range(n)]
     else:
         # K4 of frame i + 1 is enqueued before frame i's survivor counts are
         # read back, so the card has work while the host waits for them
@@ -693,11 +693,11 @@ def _match_vote_adjacent(pool, ia: np.ndarray, cfg: StitchConfig,
     jax_chunk = max(1, (1 << 28) // (4 * max_kp * max_kp))
     draws = [(min(jax_chunk, len(ia) - s0), i - s0)
              for i in range(len(ia)) for s0 in [i - i % jax_chunk]]
-    # pairs per matcher call: the plain version holds a Ka x Kb distance
-    # matrix a pair, the kernel only its gathered inputs (2 x Ka x D floats
-    # a pair), so on the kernel route every pair of a sequence goes in one
-    # call; each bound is 1 GiB
-    if descs.is_cuda and cfg.use_kernels:
+    # pairs per matcher call: the plain version and the Hamming product
+    # hold a Ka x Kb distance matrix a pair, the L2 kernel only its
+    # gathered inputs (2 x Ka x D floats a pair), so on the kernel route
+    # every pair of a sequence goes in one call; each bound is 1 GiB
+    if descs.is_cuda and cfg.use_kernels and metric == "l2":
         pchunk = max(1, (1 << 30) // (8 * max_kp * descs.shape[2]))
     else:
         pchunk = jax_chunk

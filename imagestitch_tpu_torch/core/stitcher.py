@@ -8,7 +8,8 @@ Port of the single-device path of ``imagestitch_tpu/core/stitcher.py``
   * ``stitch_batch``       — flowStitchWithMutiple (reference
     Stitcher.py:96-127): register every pair up front (or load the records
     from a checkpoint), split into segments at failed pairs, compose each
-    segment in color or gray;
+    segment in color or gray, from the pairwise offsets or, with
+    ``use_global_solver``, from the pose-graph solver's positions;
   * ``stitch_files``       — pipelined ingest (io/prefetch.py), fused with
     the pool on the gray ``feature_incre`` path;
   * ``stitch_project_set`` — imageSetStitchWithMutiple (Stitcher.py:153-182).
@@ -29,7 +30,7 @@ from ..device import resolve_device
 from ..io import codec, dataset
 from ..utils.records import SequenceReport, print_and_write
 from . import compose as compose_mod
-from . import registration
+from . import feature_registration, registration
 
 
 @dataclasses.dataclass
@@ -39,16 +40,6 @@ class StitchResult:
     file_range: Tuple[int, int]            # [start, end) indices into the file list
     offsets: List[Tuple[int, int]]         # pairwise offsets inside the segment
     report: Optional[SequenceReport] = None
-
-
-def check_supported(cfg: StitchConfig) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item that will port it,
-    for a configuration outside the ported slice."""
-    from .feature_registration import check_supported as check_registration
-    if cfg.use_global_solver:
-        raise NotImplementedError("not ported yet: use_global_solver "
-                                  "(ROADMAP Queue 1 item 20)")
-    check_registration(cfg)
 
 
 def _host(x) -> np.ndarray:
@@ -72,7 +63,7 @@ class Stitcher:
         if mesh is not None:
             raise NotImplementedError("a device mesh is not ported yet "
                                       "(ROADMAP Queue 1 item 22)")
-        check_supported(cfg)
+        feature_registration.check_supported(cfg)
         self.device = resolve_device(device, "Stitcher")
         self.cfg = cfg
         self.checkpoint_dir = checkpoint_dir
@@ -159,6 +150,10 @@ class Stitcher:
                 end += 1
             if end == start:
                 img = _host(compose_src[start])
+            elif self.cfg.use_global_solver:
+                img = self._solve_and_compose(batch, recs, gray,
+                                              compose_src[start:end + 1],
+                                              start, end)
             else:
                 img = self._compose_segment(batch, compose_src[start:end + 1],
                                             seg_offsets, start, end)
@@ -172,6 +167,58 @@ class Stitcher:
         for r in results:
             r.report = report
         return results
+
+    def _solve_and_compose(self, batch: dataset.ImageBatch, recs, gray,
+                           seg_images, start: int, end: int) -> np.ndarray:
+        """The global solver's segment (JAX stitcher.py:161-185): the chain
+        of sub-pixel offsets weighted by confidence (at least 1e-3), with
+        loop-closure edges measured on the gray frames when the segment has
+        three or more, solved for absolute positions and composed from
+        them."""
+        from ..solver import loop_closure
+        from ..solver import pose_graph as pg
+        subpix = [recs[k].offset_subpix for k in range(start, end)]
+        conf = [max(recs[k].confidence, 1e-3) for k in range(start, end)]
+        graph = pg.PoseGraph.from_chain(subpix, conf)
+        if end - start + 1 >= 3:
+            gray_seg = self._to_device(gray[start:end + 1])
+            graph, n_loop = loop_closure.close_loops(
+                gray_seg, graph, pg.chain_positions(subpix),
+                tuple(gray_seg.shape[1:]), device=self.device)
+            if self.cfg.print_log or self.cfg.evaluate:
+                print_and_write(self.cfg, f"  solver: {n_loop} loop-closure "
+                                          f"edges added")
+        positions = pg.solve(graph, iters=self.cfg.solver_iters or None,
+                             device=self.device)
+        return self._compose_positions(batch, seg_images, positions, start,
+                                       end)
+
+    def _compose_positions(self, batch: dataset.ImageBatch, seg_images,
+                           positions, start: int, end: int) -> np.ndarray:
+        """Compose a solved segment (JAX stitcher.py:242-263): on the
+        device by default; with ``stream_output`` and a mode the host
+        composers run, on the host in float64 (``compose_host_positions``)
+        for color frames and for gray frames the host holds, the runtime
+        present.  Color takes the host without the runtime too, as
+        ``_compose_segment`` does (the JAX package composes it on the
+        device then)."""
+        cfg = self.cfg
+        if cfg.stream_output and \
+                cfg.fuse_method in compose_mod._PADDABLE_METHODS:
+            from ..io import native_loader
+            from . import stream_out
+            if cfg.color_mode:
+                if isinstance(batch.color, np.ndarray):
+                    return stream_out.compose_host_positions(
+                        seg_images, positions, cfg)
+            else:
+                host = batch.gray_host if batch.gray_host is not None else (
+                    batch.gray if isinstance(batch.gray, np.ndarray) else None)
+                if host is not None and native_loader.get_lib() is not None:
+                    return stream_out.compose_host_positions(
+                        host[start:end + 1], positions, cfg)
+        return compose_mod.compose_from_positions(
+            self._to_device(seg_images), positions, cfg)
 
     def _compose_segment(self, batch: dataset.ImageBatch, seg_images,
                          seg_offsets, start: int, end: int) -> np.ndarray:

@@ -1,14 +1,14 @@
 """Streamed panorama output: host float64 composition and rect-only readback.
 
-Port of ``imagestitch_tpu/core/stream_out.py`` (:50-272, :283-399), without
-``compose_host_positions`` (the solver, ROADMAP Queue 1 item 20).  Two
-composers materialize the panorama on the host without a full-canvas
-readback:
+Port of ``imagestitch_tpu/core/stream_out.py`` (:50-399).  Two composers
+materialize the panorama on the host without a full-canvas readback:
 
-  * ``compose_host`` / ``compose_color_host`` replay the device composer's
-    paste/fuse steps on a host int16 canvas and blend each fusion rect in
-    float64, the reference's own arithmetic (ImageFusion.py:241-243), for
-    the modes the JAX composer pads (``compose._PADDABLE_METHODS``).  With
+  * ``compose_host`` / ``compose_color_host`` (and
+    ``compose_host_positions``, from the global solver's absolute
+    positions) replay the device composer's paste/fuse steps on a host
+    int16 canvas and blend each fusion rect in float64, the reference's
+    own arithmetic (ImageFusion.py:241-243), for the modes the JAX
+    composer pads (``compose._PADDABLE_METHODS``).  With
     the shared C++ runtime (io/native_loader.py) a fade or trigonometric
     step is one ``isr_fuse_step`` call; the other modes, and every mode
     without the runtime, run in numpy (ops/fusion/host_blend.py).  No
@@ -188,6 +188,16 @@ def compose_host(frames: np.ndarray, offsets: Sequence[Tuple[int, int]],
                                                           cfg)
     return _run_steps_host(frames, placement.canvas_shape, steps, pairwise,
                            cfg)
+
+
+def compose_host_positions(frames: np.ndarray, positions: np.ndarray,
+                           cfg: StitchConfig) -> np.ndarray:
+    """Host float64 composition from ABSOLUTE tile positions (the global
+    solver's output): the host analog of ``compose_from_positions``."""
+    h, w = frames.shape[1], frames.shape[2]
+    shape, steps, deltas = compose_mod.plan_compose_positions(
+        positions, (h, w), cfg)
+    return _run_steps_host(frames, shape, steps, deltas, cfg)
 
 
 def _run_steps_host(frames: np.ndarray, canvas_shape, steps, pairwise,

@@ -1,12 +1,15 @@
-"""Batched descriptor matching: squared-L2 kNN(2) + Lowe ratio.
+"""Batched descriptor matching: squared-L2 kNN(2) + Lowe ratio, and the
+nearest Hamming neighbour.
 
-Port of ``imagestitch_tpu/ops/features/match.py:29-136`` (the L2 metric of
-the reference's BruteForce matcher, ImageUtility.py:278-296).  The pooled
-replay calls ``match_batch_coords``, which goes through the K3 matcher
-kernel and also returns each query's matched train coordinates; the
-whole-image path calls ``match_batch``, which goes through K5
-(``ops/kernels/matcher.py``).  The ratio test runs on squared distances
-with ratio^2.
+Port of ``imagestitch_tpu/ops/features/match.py:29-136`` (the reference's
+BruteForce matchers, ImageUtility.py:278-309).  L2: the pooled replay
+calls ``match_batch_coords``, which goes through the K3 matcher kernel and
+also returns each query's matched train coordinates; the whole-image path
+calls ``match_batch``, which goes through K5 (``ops/kernels/matcher.py``).
+The ratio test runs on squared distances with ratio^2.  Hamming (ORB):
+{0, 1} float bit vectors, distance by the matrix-product identity
+|a| + |b| - 2 a.b, exact in float32 below 2^24 bits; the JAX package
+computes it outside any Pallas kernel, so it is a ``torch.matmul`` here.
 """
 from __future__ import annotations
 
@@ -27,14 +30,29 @@ def _pairwise_sq_l2(da: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(na + nb.transpose(-1, -2) - 2.0 * ab, 0.0)
 
 
+def _pairwise_hamming(da: torch.Tensor, db: torch.Tensor) -> torch.Tensor:
+    """(..., Ka, D), (..., Kb, D) {0, 1} float bits -> (..., Ka, Kb)
+    Hamming distances (matmul identity)."""
+    ab = torch.matmul(da, db.transpose(-1, -2))
+    na = da.sum(dim=-1, keepdim=True)
+    nb = db.sum(dim=-1, keepdim=True)
+    return na + nb.transpose(-1, -2) - 2.0 * ab
+
+
+def _first_argmin(dist: torch.Tensor, d0: torch.Tensor) -> torch.Tensor:
+    """Index of the first column where each row reaches its minimum
+    ``d0`` (jnp.argmin's tie rule, on every device)."""
+    col = torch.arange(dist.shape[-1], device=dist.device)
+    return torch.where(dist == d0[..., None], col,
+                       torch.full_like(col, dist.shape[-1])).min(dim=-1).values
+
+
 def _top2_min(dist: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Row-wise two smallest: (d0, idx0 = first argmin, d1 = min over the
     other columns)."""
     d0 = dist.min(dim=-1).values
-    col = torch.arange(dist.shape[-1], device=dist.device)
-    i0 = torch.where(dist == d0[..., None], col,
-                     torch.full_like(col, dist.shape[-1])).min(dim=-1).values
+    i0 = _first_argmin(dist, d0)
     masked = dist.scatter(-1, i0[..., None], _BIG)
     d1 = masked.min(dim=-1).values
     return d0, i0, d1
@@ -59,22 +77,30 @@ def ratio_ok(valid_a: torch.Tensor, d0: torch.Tensor, d1: torch.Tensor,
     return valid_a & (d0 < (ratio * ratio) * d1) & (d1 < _BIG)
 
 
-def _require_l2(metric: str) -> None:
-    if metric != "l2":
-        raise NotImplementedError(
-            f"metric {metric!r}: only L2 is ported (the Hamming metric is "
-            f"ROADMAP Queue 1 item 17)")
+def match_nearest_hamming(da: torch.Tensor, db: torch.Tensor,
+                          valid_a: torch.Tensor, valid_b: torch.Tensor,
+                          max_distance: float = 1e9
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain nearest-neighbour Hamming match (ImageUtility.py:297-302):
+    (train_idx = the first nearest valid train row, ok = valid query and
+    distance <= ``max_distance``), each (..., Ka)."""
+    dist = _pairwise_hamming(da, db)
+    dist = torch.where(valid_b[..., None, :], dist,
+                       torch.full_like(dist, _BIG))
+    d0 = dist.min(dim=-1).values
+    i0 = _first_argmin(dist, d0)
+    return i0, valid_a & (d0 <= max_distance) & (d0 < _BIG)
 
 
 def match_batch(da: torch.Tensor, db: torch.Tensor, valid_a: torch.Tensor,
                 valid_b: torch.Tensor, ratio: float, max_distance: float,
                 metric: str = "l2", use_kernel: bool = True):
-    """(P, K, D) descriptors -> (train_idx, ok), each (P, K).
-
-    ``max_distance`` serves the Hamming metric, which is not ported yet.
-    """
+    """(P, K, D) descriptors -> (train_idx, ok), each (P, K): L2 ratio
+    matches (K5 on the card) or, for ``metric="hamming"``, nearest
+    Hamming matches within ``max_distance``."""
+    if metric != "l2":
+        return match_nearest_hamming(da, db, valid_a, valid_b, max_distance)
     from ..kernels import matcher
-    _require_l2(metric)
     d0, i0, d1 = matcher.top2_l2(da, db, valid_b, use_kernel=use_kernel)
     return i0, ratio_ok(valid_a, d0, d1, ratio)
 
@@ -84,12 +110,14 @@ def match_batch_coords(da: torch.Tensor, db: torch.Tensor,
                        rows_b: torch.Tensor, cols_b: torch.Tensor,
                        ratio: float, max_distance: float,
                        metric: str = "l2", use_kernel: bool = True):
-    """(P, K, D) descriptors -> (train_idx, ok, rb_sel, cb_sel), each (P, K).
-
-    ``max_distance`` serves the Hamming metric, which is not ported yet.
-    """
+    """(P, K, D) descriptors -> (train_idx, ok, rb_sel, cb_sel), each
+    (P, K): L2 through K3, which also returns the matched train
+    coordinates; Hamming through ``match_batch`` and a gather."""
+    if metric != "l2":
+        ti, ok = match_batch(da, db, valid_a, valid_b, ratio, max_distance,
+                             metric)
+        return ti, ok, rows_b.gather(-1, ti), cols_b.gather(-1, ti)
     from ..kernels import matcher
-    _require_l2(metric)
     d0, i0, d1, rb_sel, cb_sel = matcher.top2_l2_coords(
         da, db, valid_b, rows_b, cols_b, use_kernel=use_kernel)
     return i0, ratio_ok(valid_a, d0, d1, ratio), rb_sel, cb_sel

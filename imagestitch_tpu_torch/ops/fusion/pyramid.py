@@ -13,9 +13,10 @@ significant bits is exact there) and rounded once to float32, so the
 pyramids are bit-equal to the JAX ones.  The resize of an odd-size level
 is ``jax.image.resize(..., "cubic")``: the Keys cubic (a = -0.5) with
 antialiasing, whose kernel widens by 1 / scale on a downscale.  Its weight
-matrices are jax's formula evaluated in float32 on the host, op by op,
-and applied as float64 products rounded once to float32, the same on the
-card and the CPU.  XLA's compiled code rounds both otherwise, in ways that
+matrices are jax's formula evaluated in float32 on the host, rounded as
+XLA's CPU code rounds the sample positions (``resize_weights``, shared
+with the ORB pyramid's linear resize), and applied as float64 products
+rounded once to float32, the same on the card and the CPU.  XLA's compiled code rounds both otherwise, in ways that
 change with the size, so where a level has an odd size the blends agree
 with the JAX package's to about 1e-5, not bit for bit
 (tests/test_torch_pyramid_seam.py).
@@ -79,22 +80,39 @@ def pyr_up(x: torch.Tensor) -> torch.Tensor:
     return _sep_conv_reflect(up, _K5_UP)
 
 
-def _cubic_weights(m: int, n: int) -> np.ndarray:
-    """(m, n) float32 weights of ``jax.image.resize`` from m samples to n,
-    method "cubic", antialias on (jax/_src/image/scale.py:40-85):
-    half-pixel sample positions, the Keys kernel widened by
-    max(1 / scale, 1), per-output normalisation, and zero weights for
-    samples outside [-0.5, m - 0.5]."""
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """The Keys cubic kernel (a = -0.5) of ``jax.image.resize``'s "cubic"."""
+    f32 = np.float32
+    near = ((f32(1.5) * x - f32(2.5)) * x) * x + f32(1.0)
+    far = ((f32(-0.5) * x + f32(2.5)) * x - f32(4.0)) * x + f32(2.0)
+    return np.where(x >= 2.0, f32(0.0), np.where(x >= 1.0, far, near))
+
+
+def _triangle(x: np.ndarray) -> np.ndarray:
+    """The triangle kernel of ``jax.image.resize``'s "linear"."""
+    return np.maximum(np.float32(0.0), np.float32(1.0) - np.abs(x))
+
+
+_KERNELS = {"cubic": _keys_cubic, "linear": _triangle}
+
+
+def resize_weights(m: int, n: int, method: str) -> np.ndarray:
+    """(m, n) float32 weights of ``jax.image.resize`` from m samples to n
+    by ``method`` ("cubic" or "linear"), antialias on
+    (jax/_src/image/scale.py:40-85): half-pixel sample positions, the
+    kernel widened by max(1 / scale, 1), per-output normalisation, and
+    zero weights for samples outside [-0.5, m - 0.5].  The sample
+    positions round once (XLA fuses their product and difference) and the
+    kernel's argument is a product by the reciprocal of its width, as
+    XLA's CPU code computes them."""
     f32 = np.float32
     inv_scale = 1.0 / (n / m)                 # Python floats, as jax has them
     kernel_scale = max(f32(inv_scale), f32(1.0))
-    sample_f = ((np.arange(n, dtype=f32) + f32(0.5)) * f32(inv_scale)
-                - f32(0.0)) - f32(0.5)
+    sample_f = ((np.arange(n, dtype=f32) + f32(0.5)).astype(np.float64)
+                * f32(inv_scale) - 0.5).astype(f32)
     x = np.abs(sample_f[None, :] - np.arange(m, dtype=f32)[:, None]) \
-        / kernel_scale
-    near = ((f32(1.5) * x - f32(2.5)) * x) * x + f32(1.0)
-    far = ((f32(-0.5) * x + f32(2.5)) * x - f32(4.0)) * x + f32(2.0)
-    wts = np.where(x >= 2.0, f32(0.0), np.where(x >= 1.0, far, near))
+        * (f32(1.0) / kernel_scale)
+    wts = _KERNELS[method](x).astype(f32)
     total = wts.sum(axis=0, keepdims=True, dtype=f32)
     wts = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
                    wts / np.where(total != 0, total, f32(1.0)), f32(0.0))
@@ -102,24 +120,28 @@ def _cubic_weights(m: int, n: int) -> np.ndarray:
     return np.where(inside[None, :], wts, f32(0.0)).astype(f32)
 
 
-@functools.lru_cache(maxsize=32)
-def _cubic_weights_on(m: int, n: int, device: torch.device) -> torch.Tensor:
-    """``_cubic_weights`` as float64 on ``device``, built once."""
-    return torch.as_tensor(_cubic_weights(m, n)).to(device, torch.float64)
+@functools.lru_cache(maxsize=64)
+def _weights_on(m: int, n: int, method: str, device: torch.device
+                ) -> torch.Tensor:
+    """``resize_weights`` as float64 on ``device``, built once."""
+    return torch.as_tensor(resize_weights(m, n, method)).to(device,
+                                                             torch.float64)
 
 
-def _resize_to(x: torch.Tensor, shape_hw: Tuple[int, int]) -> torch.Tensor:
-    """``jax.image.resize(x, shape_hw, "cubic")`` (antialias on): one
-    product per axis whose size changes.  Only the multiband path's
-    (2h -> 2h - 1) downscale of an odd level reaches it."""
+def _resize_to(x: torch.Tensor, shape_hw: Tuple[int, int],
+               method: str = "cubic") -> torch.Tensor:
+    """``jax.image.resize(x, shape_hw, method)`` (antialias on) of an (H, W)
+    float32 image: one product per axis whose size changes, in float64,
+    rounded once.  The multiband path's (2h -> 2h - 1) downscale of an odd
+    level takes "cubic"; the ORB pyramid's levels take "linear"."""
     if tuple(x.shape) == tuple(shape_hw):
         return x
     out = x.to(torch.float64)
     (h, w), (oh, ow) = x.shape, shape_hw
     if oh != h:
-        out = _cubic_weights_on(h, oh, x.device).t() @ out
+        out = _weights_on(h, oh, method, x.device).t() @ out
     if ow != w:
-        out = out @ _cubic_weights_on(w, ow, x.device)
+        out = out @ _weights_on(w, ow, method, x.device)
     return out.to(torch.float32)
 
 

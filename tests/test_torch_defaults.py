@@ -7,8 +7,8 @@ JAX package's signatures and exports.
 - The ingest functions take the JAX parameters in the JAX places, with
   ``device`` keyword-only, and ``Stitcher.stitch_files`` passes it by
   keyword.
-- ``imagestitch_tpu_torch.__all__`` is the JAX package's, less
-  ``compose_host_positions`` (the global solver, ROADMAP item 20)."""
+- ``imagestitch_tpu_torch.__all__`` is the JAX package's, in its order,
+  ``compose_host_positions`` included, and both have the solver modules."""
 import inspect
 
 import numpy as np
@@ -167,9 +167,16 @@ def test_stitch_files_passes_the_device_by_keyword(monkeypatch, color_mode):
 
 
 def test_exports_are_the_jax_package_ones():
-    want = [n for n in imagestitch_tpu.__all__
-            if n != "compose_host_positions"]
+    want = list(imagestitch_tpu.__all__)
     assert imagestitch_tpu_torch.__all__ == want
+    import imagestitch_tpu.solver.loop_closure as jlc
+    import imagestitch_tpu.solver.pose_graph as jpg
+    from imagestitch_tpu_torch.solver import loop_closure, pose_graph
+    for jmod, tmod in ((jpg, pose_graph), (jlc, loop_closure)):
+        for name in ("PoseGraph", "solve", "sharded_solve_fn",
+                     "chain_positions", "propose_edges", "verify_edges",
+                     "close_loops"):
+            assert hasattr(tmod, name) == hasattr(jmod, name), name
     for name in want:
         assert hasattr(imagestitch_tpu_torch, name), name
     assert imagestitch_tpu_torch.__version__ == imagestitch_tpu.__version__

@@ -95,11 +95,19 @@ def test_describe_from_pyramid_matches_xla():
         [torch.as_tensor(o) for o in octs], torch.as_tensor(r_loc),
         torch.as_tensor(c_loc), torch.as_tensor(oid), sp_t)
     np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=ATOL)
-    # SIFT is not ported yet (oriented SURF is: tests/test_torch_oriented.py)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tdescribe.describe_batch(torch.as_tensor(octs[0])[None],
-                                 torch.zeros(1, 1), torch.zeros(1, 1),
-                                 tdescribe.DescribeParams(family="sift"))
+    # upright SIFT over the same atlas: the same bins (glibc's atan2f, as
+    # XLA's CPU code calls it), so within the same tolerance (oriented
+    # SURF: tests/test_torch_oriented.py; SIFT and ORB at more shapes:
+    # tests/test_torch_families.py)
+    sift = lambda pkg: pkg.DescribeParams(family="sift", upright=True)
+    ref = np.asarray(jdescribe.describe_from_pyramid(
+        [jnp.asarray(o) for o in octs], jnp.asarray(r_loc),
+        jnp.asarray(c_loc), jnp.asarray(oid), sift(jdescribe)))
+    got = tdescribe.describe_from_pyramid(
+        [torch.as_tensor(o) for o in octs], torch.as_tensor(r_loc),
+        torch.as_tensor(c_loc), torch.as_tensor(oid), sift(tdescribe))
+    assert got.shape == ref.shape == (n, 128)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0, atol=ATOL)
 
 
 @pytest.fixture

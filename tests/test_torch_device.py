@@ -15,12 +15,15 @@ def no_cuda(monkeypatch):
 def test_stitcher_without_device_needs_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Stitcher(StitchConfig())
-    # an unported configuration still names its ROADMAP item first; a
-    # ported fusion mode needs the card like any other
-    with pytest.raises(NotImplementedError, match="item 20"):
-        Stitcher(StitchConfig(use_global_solver=True))
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        Stitcher(StitchConfig(fuse_method="average"))
+    # an unported configuration still names its ROADMAP item (or list)
+    # first; a ported option needs the card like any other
+    with pytest.raises(NotImplementedError, match="item 22"):
+        Stitcher(StitchConfig(), mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Stitcher(StitchConfig(compute_dtype="bfloat16"))
+    for ported in (dict(fuse_method="average"), dict(use_global_solver=True)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Stitcher(StitchConfig(**ported))
     assert Stitcher(StitchConfig(), device="cpu").device.type == "cpu"
 
 

@@ -145,8 +145,17 @@ def test_default_configurations_construct():
                                               "--fuse-method", method])
         st = Stitcher(cli.config_from_args(args), device="cpu")
         assert st.cfg.fuse_method == method
-    with pytest.raises(NotImplementedError, match="item 20"):
-        Stitcher(StitchConfig(use_global_solver=True), device="cpu")
+    # the global solver and the other feature families construct too, from
+    # the CLI's flags
+    for flags, field, want in (
+            (["--use-solver"], "use_global_solver", True),
+            (["--feature-method", "sift"], "method", "sift"),
+            (["--feature-method", "orb"], "method", "orb"),
+            (["--box-filter"], "box_filter", True)):
+        args = cli.build_parser().parse_args(["stitch", "p", "o"] + flags)
+        st = Stitcher(cli.config_from_args(args), device="cpu")
+        holder = st.cfg if field == "use_global_solver" else st.cfg.features
+        assert getattr(holder, field) == want
 
 
 def test_cli_device_cuda_without_cuda_raises(tmp_path, monkeypatch):

@@ -100,8 +100,17 @@ def test_match_batch_and_displacements_match_jax():
                                          t(cols[1]), ti, ok)
     for g, r in zip(td, jd):
         np.testing.assert_array_equal(g.numpy(), r)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tmatch.match_batch(t(da), t(db), t(va), t(vb), 0.75, 30.0, "hamming")
+    # the Hamming metric (ORB) on {0, 1} bits of the same pairs: bit-equal
+    # (more cases in test_torch_families.py)
+    ba, bb = (da > 0).astype(np.float32), (db > 0).astype(np.float32)
+    jti, jok = (np.asarray(a) for a in jmatch.match_batch(
+        jnp.asarray(ba), jnp.asarray(bb), jnp.asarray(va), jnp.asarray(vb),
+        0.75, 30.0, "hamming"))
+    ti, ok = tmatch.match_batch(t(ba), t(bb), t(va), t(vb), 0.75, 30.0,
+                                "hamming")
+    np.testing.assert_array_equal(ok.numpy(), jok)
+    np.testing.assert_array_equal(ti.numpy(), jti)
+    assert 0 < jok.sum() < p * k
 
 
 def _jcfg(**feat):

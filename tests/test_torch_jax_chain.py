@@ -10,10 +10,12 @@ and changes no file of the JAX package:
     (``_detect_describe_image_pallas`` imports the module at call time, so
     the patch reaches it);
   * ``core.feature_registration._pool_features_jit`` maps every frame
-    through the pool the TPU dispatch picks: the fused pool
-    (``_detect_describe_image_pallas_v2``, interpret mode) for upright SURF
-    with ``fused_select``, else the score-map pool
-    (``_detect_describe_image_pallas``).
+    through the pool the TPU dispatch picks (its ``per_image``): the fused
+    pool (``_detect_describe_image_pallas_v2``, interpret mode) for upright
+    SURF with ``fused_select``, the score-map pool
+    (``_detect_describe_image_pallas``) for the other Gaussian-DoH frames,
+    and the XLA detector (``detect.detect_describe_image``) for the corner
+    (ORB) and box-filter families.
 Then the JAX entry points themselves run: ``register_sequence_features_incre``
 with its oriented fallback, ``register_sequence_features`` with its
 oriented retry, and ``Stitcher.stitch_batch``.  The matchers stay on the
@@ -46,8 +48,11 @@ def route_pools_as_on_tpu(monkeypatch):
             if fused_select and jfr._fused_select_ok(dparams, sparams):
                 return jfr._detect_describe_image_pallas_v2(
                     img, dparams, sparams, interpret=True)
-            return jfr._detect_describe_image_pallas(img, max_pool, dparams,
-                                                     sparams)
+            if dparams.family == "hessian" and not dparams.box_filter:
+                return jfr._detect_describe_image_pallas(img, max_pool,
+                                                         dparams, sparams)
+            return jfr.detect.detect_describe_image(img, max_pool, dparams,
+                                                    sparams)
         return jax.lax.map(per_image, images)
 
     monkeypatch.setattr(jfr, "_pool_features_jit", pools)

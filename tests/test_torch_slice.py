@@ -134,19 +134,32 @@ def upright_records(frames):
     dict(use_global_solver=True),
 ])
 def test_outside_the_slice_raises(frames, upright_records, change):
-    """Stitcher-level options.  The global solver still raises, naming its
-    ROADMAP item; the fusion modes are ported: the Stitcher composes each
-    segment as ``compose`` does (their parity with the JAX package is in
-    test_torch_fusion_modes.py and test_torch_pyramid_seam.py), and color
-    multiband raises ValueError.  The registration-level options are in
+    """Stitcher-level options, each once raising, now ported.  The fusion
+    modes: the Stitcher composes each segment as ``compose`` does (their
+    parity with the JAX package is in test_torch_fusion_modes.py and
+    test_torch_pyramid_seam.py), and color multiband raises ValueError.
+    The global solver: on the same records, the JAX Stitcher's segments
+    and panoramas (loop closure over the 4-frame segment, the pose-graph
+    solve, composition from the rounded positions; more in
+    test_torch_solver.py).  The registration-level options are in
     test_torch_unported.py."""
     cfg = StitchConfig(color_mode=False).replace(**change)
-    if cfg.use_global_solver:
-        with pytest.raises(NotImplementedError, match="item 20"):
-            Stitcher(cfg, device="cpu")
-        return
     frames, _ = frames
     files = [f"f{i}" for i in range(len(frames))]
+    if cfg.use_global_solver:
+        from imagestitch_tpu import Stitcher as JStitcher
+        from imagestitch_tpu.io.dataset import ImageBatch as JImageBatch
+        from test_torch_jax_chain import assert_segments_equal
+        ref = JStitcher(JStitchConfig(color_mode=False).replace(
+            **change)).stitch_batch(
+            JImageBatch(gray=frames, color=None, files=files),
+            recs=upright_records)
+        got = Stitcher(cfg, device="cpu").stitch_batch(
+            ImageBatch(gray=frames, color=None, files=files),
+            recs=upright_records)
+        assert [r.file_range for r in got] == [(0, 4), (4, 5)]
+        assert_segments_equal(got, ref)
+        return
     res = Stitcher(cfg, device="cpu").stitch_batch(
         ImageBatch(gray=frames, color=None, files=files),
         recs=upright_records)

@@ -93,9 +93,24 @@ def test_xla_pool_of_pool_features(frames):
                                atol=1e-5)
 
 
-def test_box_filter_and_corner_raise():
-    img = torch.zeros((64, 64))
-    for p in (tdetect.DetectParams(box_filter=True),
-              tdetect.DetectParams(family="corner")):
-        with pytest.raises(NotImplementedError, match="item 17"):
-            tdetect.detect_image(img, 16, p)
+def test_box_filter_and_corner_raise(frames):
+    """Once raising (ROADMAP item 17), the box-filter and corner families
+    now run through ``detect_image`` / ``detect_batch`` like the JAX
+    detector: box-filter positions and scores bit-equal; corner positions
+    within 1e-4 px and Harris scores within 1e-5 relative (the ORB
+    levels' linear resize differs in the last bits;
+    test_torch_families.py)."""
+    for kw in (dict(box_filter=True), dict(family="corner")):
+        ref = jdetect.detect_batch(jnp.asarray(frames[:1]), 128,
+                                   jdetect.DetectParams(**kw))
+        got = tdetect.detect_batch(torch.from_numpy(frames[:1]), 128,
+                                   tdetect.DetectParams(**kw))
+        box = "box_filter" in kw
+        for g, r, tol in zip(got, ref, (0, 0, 0) if box else
+                             (1e-4, 1e-4, None)):
+            g, r = g.numpy(), np.asarray(r)
+            if tol is None:
+                np.testing.assert_allclose(g, r, rtol=1e-5, atol=0)
+            else:
+                np.testing.assert_allclose(g, r, rtol=0, atol=tol)
+        assert (got[2] > 0).sum() == (np.asarray(ref[2]) > 0).sum() > 0
