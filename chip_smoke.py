@@ -162,6 +162,32 @@ Phases, one line of output each:
                     11 color PNGs (the solved segment through
                     compose_host_positions; the files decode to a
                     stitch_files run's panoramas).
+  11. oriented SIFT — (p') feature_incre, method="sift",
+                auto_upright=False (11 frames), as phase 8's paths are
+                checked: every frame through the score-map pool (K4 once a
+                frame; no fallback), K3 in the replay; then frame 0's SIFT
+                pool on the card against the CPU (the keypoints equal, the
+                descriptor rows beyond 1e-5 within ORIENTED_SIFT_SHARE) and
+                the oriented describe's device ms, SURF-128 beside SIFT.
+  12. evaluation — (t), each part timed by utils/profiling.PhaseTimer:
+                (t1) eval.synthetic.run(25, 40, iters=400): 1,000 tiles,
+                    1,935 edges, the error under 2 px and a third of the
+                    chain's; the solve equal from run to run and within
+                    1e-2 px of the port's CPU solve;
+                (t2) eval.accuracy.evaluate_dataset on the first 10 frames
+                    written as gray JPEGs under
+                    <tmp>/demo/dendriticCrystal/1/, its dataset_configs()
+                    entry: every pair within 1 px of the truth, == the
+                    plain run, K1, K2 and K3 counted; the cv2.SIFT oracle's
+                    compared pairs within 2 px where cv2 has SIFT (else the
+                    line says the oracle was absent);
+                (t3) eval.loop_closure_demo.run on the same root: (s)'s
+                    loop edges, solved residuals no larger than the
+                    chain's, the report within 1e-2 px of the CPU run's;
+                (t4) utils.image.resize of (a)'s panorama by 0.5 and
+                    rectify_final of it with two corners blanked, against
+                    the CPU (resize within one level on at most 1e-5 of
+                    the values, rectify equal).
   9. pool split — (b)'s score-map pool once more: its device ms a frame
                 by stage (torch.profiler, tools/torch_pool_split.py) and
                 the card's busy share; last, because the profiler slows
@@ -186,6 +212,9 @@ import time
 FP32_PEAK = 67e12
 TF32_PEAK = 495e12
 HBM_RATE = 3.35e12
+#: the share of oriented SIFT descriptor rows that may lie beyond 1e-5
+#: of the reference (tests/test_torch_oriented_sift.py); card against CPU
+ORIENTED_SIFT_SHARE = 0.02
 #: FP32 operations of K2 per keypoint (csrc/describe.cu): 256 samples of 37
 #: (two 3-tap smoothings 10, two differences 3 + 9 + 5, the window weight 2,
 #: the 8 sign-split sums 8), then the norm's 128 squares, 128 adds and 128
@@ -1398,6 +1427,169 @@ def main():
           f"CPU's positions; CLI --use-solver --stream-output {wall_cli:.3f}"
           f" s -> {outputs} through compose_host_positions "
           f"{host_calls[0]}, == stitch_files")
+
+    # ---- 11. path (p'): oriented SIFT, every frame through the score-map
+    # pool with glibc's angles and XLA's sums (no fallback: no pair is
+    # upright to begin with)
+    cfg_p2 = base.replace(features=FeatureConfig(method="sift",
+                                                 auto_upright=False))
+    slice_path("(p') feature_incre sift oriented", cfg_p2, 11,
+               dict(no_pool, doh_score_map=11, top2_l2_coords=None,
+                    top2_l2=0), 4)
+    sp_sift = freg._describe_params(cfg_p2)
+    dp_sift = freg._detect_params(cfg_p2)
+    kw_pool = dict(max_pool=FeatureConfig().pool_keypoints)
+    pool_card = freg.pool_features(gray[:1], dp_sift, sp_sift, **kw_pool)
+    pool_cpu = freg.pool_features(torch.as_tensor(frames[:1]), dp_sift,
+                                  sp_sift, **kw_pool)
+    for a, b in zip(pool_card[:3], pool_cpu[:3]):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError("(p'): the card's SIFT pool keypoints "
+                                 "differ from the CPU's")
+    live = pool_cpu[2][0] > 0
+    rows_bad = ((pool_card[3][0].cpu() - pool_cpu[3][0]).abs().amax(-1)
+                > 1e-5)[live]
+    share_p = float(rows_bad.float().mean())
+    if share_p > ORIENTED_SIFT_SHARE:
+        raise AssertionError(f"(p'): {share_p:.4f} of the oriented SIFT "
+                             f"rows differ card against CPU")
+    # the oriented describe of frame 0 at its pool's keypoints: SURF-128
+    # (the torch ops) against SIFT (glibc's angles and XLA's sums), device
+    # ms by CUDA events (5 calls, enqueued while the stream sleeps)
+    from imagestitch_tpu_torch.ops.features import describe as fdesc
+    img0 = gray[:1].to(torch.float32)
+    kp_r, kp_c = pool_card[0][:1], pool_card[1][:1]
+    desc_ms = {fam: cuda_ms(torch, lambda: fdesc.describe_batch(
+        img0, kp_r, kp_c, fdesc.DescribeParams(family=fam, upright=False)),
+        iters=5, warmup=2) for fam in ("surf-extended", "sift")}
+    print(f"(p') oriented SIFT rows card against CPU: {int(rows_bad.sum())} "
+          f"of {int(live.sum())} beyond 1e-5 ({share_p:.4f}, bound "
+          f"{ORIENTED_SIFT_SHARE}); oriented describe of frame 0's "
+          f"{kp_r.numel()} pool keypoints, device ms: SURF-128 "
+          f"{desc_ms['surf-extended']:.4f}, SIFT {desc_ms['sift']:.4f}; "
+          f"{smi}")
+
+    # ---- 12. path (t): the single-device evaluation, phase by phase
+    import cv2
+    from imagestitch_tpu_torch.eval import accuracy as eval_acc
+    from imagestitch_tpu_torch.eval import loop_closure_demo as eval_lcd
+    from imagestitch_tpu_torch.eval import synthetic as eval_syn
+    from imagestitch_tpu_torch.utils import image as uimage
+    from imagestitch_tpu_torch.utils.profiling import PhaseTimer
+    timer = PhaseTimer()
+    # (t1) the 25 x 40 grid, 400 CG steps: the card's solve against its
+    # own rerun and the port's CPU solve
+    with timer.phase("t1 synthetic.run"):
+        grid = eval_syn.run(25, 40, iters=400)
+    if (grid.n_tiles, grid.n_edges, grid.n_devices) != (1000, 1935, 1) or \
+            not grid.mean_abs_err_px < min(
+                2.0, grid.chain_mean_abs_err_px / 3):
+        raise AssertionError(f"(t1): {grid}")
+    g_grid, _ = eval_syn.make_grid_graph(25, 40)
+    pos_grid = [pose_graph.solve(g_grid, iters=400, device=where)
+                for where in (dev, dev, "cpu")]
+    gap_t1 = float(np.abs(pos_grid[0] - pos_grid[2]).max())
+    if pos_grid[0].tobytes() != pos_grid[1].tobytes() or gap_t1 > 1e-2:
+        raise AssertionError(f"(t1): the card's solve is {gap_t1} px from "
+                             f"the CPU's or differs from run to run")
+    # (t2), (t3): the first 10 frames of the feature set as gray JPEGs in
+    # the demo layout
+    work = tempfile.mkdtemp(prefix="chip_smoke_t_")
+    try:
+        droot = os.path.join(work, "demo")
+        ddir = os.path.join(droot, "dendriticCrystal", "1")
+        os.makedirs(ddir)
+        for i in range(10):
+            if not cv2.imwrite(os.path.join(ddir, f"img_{i:03d}.jpg"),
+                               frames[i]):
+                raise AssertionError("(t): JPEG not written")
+        cfg_t2 = eval_acc.dataset_configs()["dendriticCrystal"]
+        has_oracle = hasattr(cv2, "SIFT_create")
+        eval_acc.evaluate_dataset(droot, "dendriticCrystal", cfg_t2,
+                                  use_oracle=False)               # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        with timer.phase("t2 evaluate_dataset"):
+            acc = eval_acc.evaluate_dataset(droot, "dendriticCrystal",
+                                            cfg_t2, use_oracle=has_oracle)
+        read_counts("(t2)", {"doh_select": 10, "describe_atlas": 10,
+                             "top2_l2_coords": None})
+        acc_plain = eval_acc.evaluate_dataset(
+            droot, "dendriticCrystal", cfg_t2.replace(use_kernels=False),
+            use_oracle=False)
+        far = [k for k, (o, t) in enumerate(zip(acc.offsets, truth))
+               if max(abs(o[0] - t[0]), abs(o[1] - t[1])) >= 1]
+        if acc.num_ok != 9 or far or acc.offsets != acc_plain.offsets or \
+                acc.num_ok != acc_plain.num_ok:
+            raise AssertionError(f"(t2): {acc.num_ok} of 9 pairs, pairs "
+                                 f"{far} 1 px or more from the truth; "
+                                 f"offsets {acc.offsets}, plain run "
+                                 f"{acc_plain.offsets}")
+        if has_oracle:
+            if acc.compared_pairs < 1 or acc.max_abs_err_px > 2:
+                raise AssertionError(f"(t2): the cv2.SIFT oracle compared "
+                                     f"{acc.compared_pairs} pairs, max "
+                                     f"error {acc.max_abs_err_px} px")
+            oracle = (f"the cv2.SIFT oracle on {acc.compared_pairs} pairs: "
+                      f"max {acc.max_abs_err_px} px, {acc.within_1px} "
+                      f"within 1 px, NCC wins {acc.ncc_wins}")
+        else:
+            oracle = "the cv2.SIFT oracle absent (cv2 has no SIFT_create)"
+        # (t3): the drift report, card against the port's CPU run
+        zero_counts()
+        with timer.phase("t3 loop_closure_demo.run"):
+            drift = eval_lcd.run(droot)
+        read_counts("(t3)", {"doh_select": 10, "describe_atlas": 10,
+                             "top2_l2_coords": None})
+        drift_cpu = eval_lcd.run(droot, device="cpu")
+        gap_t3 = max(abs(getattr(drift, f) - getattr(drift_cpu, f))
+                     for f in ("chain_mean_residual_px",
+                               "chain_max_residual_px",
+                               "solved_mean_residual_px",
+                               "solved_max_residual_px"))
+        if drift.n_loop_edges != n_card or \
+                drift.n_loop_edges != drift_cpu.n_loop_edges or \
+                drift.solved_mean_residual_px > \
+                drift.chain_mean_residual_px or \
+                drift.solved_max_residual_px > drift.chain_max_residual_px \
+                or gap_t3 > 1e-2:
+            raise AssertionError(f"(t3): {drift} on the card, {drift_cpu} "
+                                 f"on the CPU; (s) had {n_card} loop edges")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    # (t4): path (a)'s panorama halved, and rectified with one diagonal
+    # pair of its corners blanked (the rotating branch)
+    pano_a = compose_mod.compose(gray[:10], offsets_a, base)
+    with timer.phase("t4 resize"):
+        half = uimage.resize(pano_a, 0.5)
+    half_cpu = uimage.resize(pano_a, 0.5, device="cpu")
+    rd = np.abs(half.astype(np.int16) - half_cpu.astype(np.int16))
+    tilted = pano_a.copy()
+    tilted[:10, :10] = 0
+    tilted[-10:, -10:] = 0
+    with timer.phase("t4 rectify_final"):
+        rect = uimage.rectify_final(tilted)
+    if rd.max() > 1 or (rd != 0).sum() > 1e-5 * rd.size or \
+            not np.array_equal(rect, uimage.rectify_final(tilted,
+                                                          device="cpu")) \
+            or np.array_equal(rect, tilted):
+        raise AssertionError(f"(t4): resize {int((rd != 0).sum())} values "
+                             f"off the CPU's (max {rd.max()}); rectify "
+                             f"against the CPU's")
+    print(f"eval (t): (t1) {grid.n_tiles} tiles, {grid.n_edges} edges, "
+          f"error {grid.mean_abs_err_px:.4f} px (chain "
+          f"{grid.chain_mean_abs_err_px:.4f}), solve "
+          f"{grid.solve_seconds * 1e3:.1f} ms, card/CPU {gap_t1:.3g} px, "
+          f"equal from run to run; (t2) {acc.num_ok}/{acc.num_pairs} pairs "
+          f"within 1 px of the truth, == the plain run, {oracle}; (t3) "
+          f"{drift.n_loop_edges} loop edges, residual mean/max chain "
+          f"{drift.chain_mean_residual_px:.3f}/"
+          f"{drift.chain_max_residual_px:.3f} px, solved "
+          f"{drift.solved_mean_residual_px:.3f}/"
+          f"{drift.solved_max_residual_px:.3f} px, card/CPU {gap_t3:.3g} "
+          f"px; (t4) resize {pano_a.shape} -> {half.shape}, "
+          f"{int((rd != 0).sum())} values off the CPU's, rectify == the "
+          f"CPU's; walls (PhaseTimer, s) {timer.report()}; {smi}")
 
     # ---- 9. the score-map pool's device time a frame, by stage (path
     # (b)'s pool).  Last: after torch.profiler has traced the card, every

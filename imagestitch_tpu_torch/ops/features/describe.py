@@ -10,7 +10,9 @@ normalisation, and ORB's BRIEF bits (the pattern drawn by numpy's
 upright; ``wta_k`` > 2 as one-hot symbols).  Oriented descriptors first estimate the cv2-SURF dominant
 orientation on a 29x29 patch (Haar responses on the radius-6 sample
 circle, sliding pi/3 window), then sample the 18x18 grid rotated by it
-bilinearly from that patch.  ``describe_from_pyramid`` /
+bilinearly from that patch; for SIFT each of those steps rounds as XLA's
+CPU code rounds it (``xla_bits``), so its bins are the JAX package's.
+``describe_from_pyramid`` /
 ``describe_from_atlas`` / ``describe_batch`` are the dense path (the
 score-map pool describes through ``describe_from_atlas``, over the atlas its
 K4 call read); the fused pool calls the atlas kernel
@@ -26,6 +28,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..fusion.blend import _cosf, _sinf
 from .detect import _fma, _sep_conv2
 
 _S = 16          # sample grid edge (SxS window)
@@ -142,9 +145,13 @@ def _surf_from_grads(gx: torch.Tensor, gy: torch.Tensor, extended: bool
 
 
 def _bilinear_from_patch(patch: torch.Tensor, pr: torch.Tensor,
-                         pc: torch.Tensor) -> torch.Tensor:
+                         pc: torch.Tensor, xla_bits: bool = False
+                         ) -> torch.Tensor:
     """Bilinear samples of (K, G, G) patches at float patch coordinates
-    (K, ...); the 2x2 cell is clamped inside the patch."""
+    (K, ...); the 2x2 cell is clamped inside the patch.  ``xla_bits``: the
+    four products summed as XLA's CPU code sums them: the second product
+    first, then each other one's last multiply fused into the running sum
+    (rounded once)."""
     k, g, _ = patch.shape
     shape = pr.shape
     r0 = torch.floor(pr).to(torch.int64).clamp(0, g - 2)
@@ -156,16 +163,24 @@ def _bilinear_from_patch(patch: torch.Tensor, pr: torch.Tensor,
     def take(r, c):
         return flat.gather(1, (r * g + c).reshape(k, -1)).reshape(shape)
 
+    if xla_bits:
+        out = take(r0, c0 + 1) * (1 - fr) * fc
+        out = _fma(take(r0, c0) * (1 - fr), 1 - fc, out)
+        out = _fma(take(r0 + 1, c0) * fr, 1 - fc, out)
+        return _fma(take(r0 + 1, c0 + 1) * fr, fc, out)
     return (take(r0, c0) * (1 - fr) * (1 - fc)
             + take(r0, c0 + 1) * (1 - fr) * fc
             + take(r0 + 1, c0) * fr * (1 - fc)
             + take(r0 + 1, c0 + 1) * fr * fc)
 
 
-def _rot(theta: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
-    """Rotate (row=u, col=v) offsets by per-keypoint theta (K,)."""
-    ct = torch.cos(theta)
-    st = torch.sin(theta)
+def _rot(theta: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+         xla_bits: bool = False):
+    """Rotate (row=u, col=v) offsets by per-keypoint theta (K,);
+    ``xla_bits``: the cosine and sine as glibc's float32 ``cosf`` and
+    ``sinf``, which XLA's CPU code calls."""
+    ct = _cosf(theta) if xla_bits else torch.cos(theta)
+    st = _sinf(theta) if xla_bits else torch.sin(theta)
     while ct.dim() < u.dim():
         ct = ct[..., None]
         st = st[..., None]
@@ -202,13 +217,37 @@ _ORI_PTS, _ORI_WTS = _ori_sample_layout()
 _ORI_STARTS = np.arange(_ORI_STEPS, dtype=np.float32) * (2 * np.pi / _ORI_STEPS)
 
 
-def _dominant_orientation(patch: torch.Tensor) -> torch.Tensor:
+def _window_sum_xla(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in the order of XLA's CPU matrix-vector
+    product (its tiled GEMV): 8 lane sums over the whole blocks of 8, the
+    lanes added pairwise ((0+1)+(2+3))+((4+5)+(6+7)), and the tail's
+    sequential sum added in front."""
+    n = v.shape[-1]
+    nb = n // 8
+    blocks = v[..., :nb * 8].unflatten(-1, (nb, 8))
+    acc = blocks[..., 0, :]
+    for t in range(1, nb):
+        acc = acc + blocks[..., t, :]
+    while acc.shape[-1] > 1:
+        acc = acc[..., 0::2] + acc[..., 1::2]
+    if nb * 8 == n:
+        return acc[..., 0]
+    tail = v[..., nb * 8]
+    for j in range(nb * 8 + 1, n):
+        tail = tail + v[..., j]
+    return tail + acc[..., 0]
+
+
+def _dominant_orientation(patch: torch.Tensor, xla_bits: bool = False
+                          ) -> torch.Tensor:
     """cv2-SURF dominant orientation per patch (K, G, G) -> (K,) radians.
 
     Haar x/y responses at the radius-6 circle samples (box sums from the
     patch's integral image), Gaussian-weighted (sigma 2.5); the pi/3 window
     (72 starts, 5 degrees apart) whose summed response vector is longest
-    gives the angle.
+    gives the angle.  ``xla_bits``: both angles by glibc's ``atan2f`` and
+    the window sums in the order of XLA's CPU code (``_window_sum_xla``),
+    so the angle is the JAX package's bit for bit.
     """
     ii = torch.cumsum(torch.cumsum(patch, dim=1), dim=2)
     ii = torch.nn.functional.pad(ii, (1, 0, 1, 0))
@@ -226,8 +265,9 @@ def _dominant_orientation(patch: torch.Tensor) -> torch.Tensor:
     # Haar dx: right half minus left half; dy: bottom minus top
     x = (box(r0, c, r1, c1) - box(r0, c0, r1, c)) * wt         # (K, S)
     y = (box(r, c0, r1, c1) - box(r0, c0, r, c1)) * wt
+    atan2 = _atan2f if xla_bits else torch.atan2
     two_pi = torch.tensor(2 * np.pi, dtype=torch.float32, device=patch.device)
-    ang = torch.atan2(y, x)                      # (-pi, pi]
+    ang = atan2(y, x)                            # (-pi, pi]
     ang = torch.where(ang < 0, ang + two_pi, ang)
     starts = torch.from_numpy(_ORI_STARTS).to(patch.device)
     # membership: (angle - start) mod 2pi < pi/3
@@ -235,28 +275,35 @@ def _dominant_orientation(patch: torch.Tensor) -> torch.Tensor:
     d = torch.where(d < 0, d + two_pi, d)
     m = (d < torch.tensor(_ORI_WIN, dtype=torch.float32,
                           device=patch.device)).to(torch.float32)  # (K, W, S)
-    sx = torch.einsum("kws,ks->kw", m, x)
-    sy = torch.einsum("kws,ks->kw", m, y)
+    if xla_bits:
+        sx = _window_sum_xla(m * x[:, None, :])
+        sy = _window_sum_xla(m * y[:, None, :])
+    else:
+        sx = torch.einsum("kws,ks->kw", m, x)
+        sy = torch.einsum("kws,ks->kw", m, y)
     best = torch.argmax(sx * sx + sy * sy, dim=-1, keepdim=True)
-    return torch.atan2(sy.gather(1, best)[:, 0], sx.gather(1, best)[:, 0])
+    return atan2(sy.gather(1, best)[:, 0], sx.gather(1, best)[:, 0])
 
 
 def _oriented_patch_grads(image: torch.Tensor, rows: torch.Tensor,
-                          cols: torch.Tensor):
+                          cols: torch.Tensor, xla_bits: bool = False):
     """Keypoint-frame gradients: the dominant orientation of a 29x29 patch,
     then the (S+2)^2 grid rotated by it, sampled bilinearly from the patch.
 
     The grid is rotated by -theta, so its v axis maps onto the dominant
     direction (row=sin, col=cos) and an image rotation cancels (the sign of
-    imagestitch_tpu/ops/features/describe.py:236-243)."""
+    imagestitch_tpu/ops/features/describe.py:236-243).  ``xla_bits`` (the
+    SIFT route): the angle, the rotation and the bilinear sum as XLA's CPU
+    code rounds them, so SIFT's bins are the JAX package's; oriented SURF
+    keeps the faster torch ops (its sums move by ulps, not bins)."""
     patch = _patch_gather(image, rows, cols, _ORI_G, _ORI_R)
-    theta = _dominant_orientation(patch)
+    theta = _dominant_orientation(patch, xla_bits)
     base = torch.arange(_S + 2, dtype=torch.float32,
                         device=image.device) - (_S + 1) / 2.0
     u = base[:, None].expand(_S + 2, _S + 2)
     v = base[None, :].expand(_S + 2, _S + 2)
-    ru, rv = _rot(-theta, u[None], v[None])
-    q = _bilinear_from_patch(patch, ru + _ORI_R, rv + _ORI_R)
+    ru, rv = _rot(-theta, u[None], v[None], xla_bits)
+    q = _bilinear_from_patch(patch, ru + _ORI_R, rv + _ORI_R, xla_bits)
     return _grads_from_samples(q)
 
 
@@ -447,7 +494,8 @@ def describe_batch(images: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor,
             gx, gy = _grads_from_samples(
                 _patch_gather(x[p], rows[p], cols[p], _S + 2, _S // 2))
         else:
-            gx, gy = _oriented_patch_grads(x[p], rows[p], cols[p])
+            gx, gy = _oriented_patch_grads(
+                x[p], rows[p], cols[p], xla_bits=params.family == "sift")
         if params.family == "sift":
             out.append(_sift_from_grads(gx * gw, gy * gw))
         else:

@@ -22,10 +22,10 @@ from .weights import corner_fade_weights, plain_fade_weights
 
 _PI = float(np.float32(np.pi))
 
-# glibc's float32 sine (sysdeps/ieee754/flt-32/s_sinf.c, sincosf.h), the
-# sine XLA's CPU code calls for the JAX package: the argument in float64,
-# reduced by the nearest multiple of pi/2, then one of two polynomials in
-# float64, rounded once to float32.  Table: (c0, c1, s1, c2, s2, c3, s3,
+# glibc's float32 sine and cosine (sysdeps/ieee754/flt-32/s_sinf.c,
+# s_cosf.c, sincosf.h), which XLA's CPU code calls for the JAX package: the
+# argument in float64, reduced by the nearest multiple of pi/2, then one of
+# two polynomials in float64, rounded once to float32.  Table: (c0, c1, s1, c2, s2, c3, s3,
 # c4) for quadrants 0-1, and the same with the cosine's signs flipped for
 # quadrants 2-3.
 _H = float.fromhex
@@ -52,13 +52,14 @@ def _sinf_poly(x: torch.Tensor, x2: torch.Tensor, table, odd: bool
     return (c0 + x2 * c1) + x4 * c2 + (x4 * x2) * (c3 + x2 * c4)
 
 
-def _sinf(y: torch.Tensor) -> torch.Tensor:
-    """glibc's ``sinf`` of a float32 tensor, elementwise in float64 torch
-    ops (the same on the card and the CPU).  Below 2^-12 it returns y,
-    below 0.75 it takes the sine polynomial, below 120 it reduces by
-    pi/2 (reduce_fast).  Beyond 120, where glibc reduces with its large
-    table, it takes the float64 sine rounded once: the weights never reach
-    it."""
+def _sincosf(y: torch.Tensor, cos: bool) -> torch.Tensor:
+    """glibc's ``sinf`` or ``cosf`` (s_cosf.c) of a float32 tensor,
+    elementwise in float64 torch ops (the same on the card and the CPU).
+    Below 2^-12 the sine returns y and the cosine 1, below 0.75 each takes
+    its polynomial, below 120 it reduces by pi/2 (reduce_fast) and takes
+    the quadrant's polynomial (the cosine's is the sine's of the next
+    quadrant).  Beyond 120, where glibc reduces with its large table, it
+    takes the float64 function rounded once: no caller reaches it."""
     x = y.to(torch.float64)
     n = (torch.trunc(x * _HPI_INV_2P24).to(torch.int64) + 0x800000) >> 24
     r = x - n.to(torch.float64) * _HPI
@@ -66,13 +67,26 @@ def _sinf(y: torch.Tensor) -> torch.Tensor:
     r2 = r * r
     quad = [_sinf_poly(r * flip, r2, _SINCOS[t], odd)
             for t in (0, 1) for odd in (False, True)]
+    odd = ((n ^ 1) if cos else n) & 1
     reduced = torch.where((n & 2) != 0,
-                          torch.where((n & 1) != 0, quad[3], quad[2]),
-                          torch.where((n & 1) != 0, quad[1], quad[0]))
+                          torch.where(odd != 0, quad[3], quad[2]),
+                          torch.where(odd != 0, quad[1], quad[0]))
     ay = y.abs()
-    out = torch.where(ay < 0.75, _sinf_poly(x, x * x, _SINCOS[0], False),
-                      torch.where(ay < 120.0, reduced, torch.sin(x)))
-    return torch.where(ay < 2.0 ** -12, y, out.to(torch.float32))
+    out = torch.where(ay < 0.75, _sinf_poly(x, x * x, _SINCOS[0], cos),
+                      torch.where(ay < 120.0, reduced,
+                                  torch.cos(x) if cos else torch.sin(x)))
+    return torch.where(ay < 2.0 ** -12, torch.ones_like(y) if cos else y,
+                       out.to(torch.float32))
+
+
+def _sinf(y: torch.Tensor) -> torch.Tensor:
+    """glibc's ``sinf`` of a float32 tensor (``_sincosf``)."""
+    return _sincosf(y, cos=False)
+
+
+def _cosf(y: torch.Tensor) -> torch.Tensor:
+    """glibc's ``cosf`` of a float32 tensor (``_sincosf``)."""
+    return _sincosf(y, cos=True)
 
 
 def _prefill_background(image_a: torch.Tensor, image_b: torch.Tensor

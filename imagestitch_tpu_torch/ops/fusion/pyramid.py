@@ -130,14 +130,15 @@ def _weights_on(m: int, n: int, method: str, device: torch.device
 
 def _resize_to(x: torch.Tensor, shape_hw: Tuple[int, int],
                method: str = "cubic") -> torch.Tensor:
-    """``jax.image.resize(x, shape_hw, method)`` (antialias on) of an (H, W)
-    float32 image: one product per axis whose size changes, in float64,
-    rounded once.  The multiband path's (2h -> 2h - 1) downscale of an odd
-    level takes "cubic"; the ORB pyramid's levels take "linear"."""
-    if tuple(x.shape) == tuple(shape_hw):
+    """``jax.image.resize(x, shape_hw, method)`` (antialias on) of an
+    (..., H, W) float32 image over its last two axes: one product per axis
+    whose size changes, in float64, rounded once.  The multiband path's
+    (2h -> 2h - 1) downscale of an odd level takes "cubic"; the ORB
+    pyramid's levels and ``utils/image.resize`` take "linear"."""
+    if tuple(x.shape[-2:]) == tuple(shape_hw):
         return x
     out = x.to(torch.float64)
-    (h, w), (oh, ow) = x.shape, shape_hw
+    (h, w), (oh, ow) = x.shape[-2:], shape_hw
     if oh != h:
         out = _weights_on(h, oh, method, x.device).t() @ out
     if ow != w:

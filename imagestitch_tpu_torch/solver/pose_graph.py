@@ -107,6 +107,14 @@ def _edge_rhs(m: torch.Tensor, w: torch.Tensor, table: torch.Tensor
     return _scatter(-wm, wm, table)
 
 
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum(a * b) of float32 tensors: the exact products summed in float64
+    and rounded once to float32, so the card and the CPU give the same bits
+    whatever order each reduction takes (an unconverged CG's iterate
+    follows every rounding of its dot products)."""
+    return torch.sum(a.to(torch.float64) * b.to(torch.float64)).to(a.dtype)
+
+
 def _cg(matvec, b: torch.Tensor, iters: int) -> torch.Tensor:
     """Plain CG from 0: ``iters`` steps, each kept only while the
     residual's square norm exceeds 1e-10 (the JAX ``while_loop``'s
@@ -114,14 +122,14 @@ def _cg(matvec, b: torch.Tensor, iters: int) -> torch.Tensor:
     x = torch.zeros_like(b)
     r = b
     p = r
-    rs = torch.sum(r * r)
+    rs = _dot(r, r)
     for _ in range(iters):
         go = rs > 1e-10
         ap = matvec(p)
-        alpha = rs / (torch.sum(p * ap) + 1e-30)
+        alpha = rs / (_dot(p, ap) + 1e-30)
         x_n = x + alpha * p
         r_n = r - alpha * ap
-        rs_n = torch.sum(r_n * r_n)
+        rs_n = _dot(r_n, r_n)
         beta = rs_n / (rs + 1e-30)
         p_n = r_n + beta * p
         x, r, p, rs = (torch.where(go, new, old) for new, old in

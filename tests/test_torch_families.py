@@ -15,10 +15,12 @@ Tolerances, each held where it is stated:
     relative (the levels' last bits), the same keypoints in the same order;
   * box-filter positions, scores and upright descriptors bit-equal or
     within 1e-5; SIFT within 1e-5 upright (glibc's atan2f, which XLA's CPU
-    code calls, so the same bins); oriented SIFT within 1e-5 on at least
-    85% of the descriptors: the rotated grid's cos, sin and bilinear
-    samples round otherwise than XLA's fused code, and a gradient that
-    moves by an ulp can move its magnitude into the next bin;
+    code calls, so the same bins); oriented SIFT within 1e-5 on all but 2%
+    of the descriptors (1 row of 300 at this seed): the port mirrors the
+    orientation and the rotation bit for bit, but XLA recomputes the
+    rotated grid in each of its fusions with FMAs placed per fusion, and a
+    gradient that moves by an ulp can move its magnitude into the next bin
+    (test_torch_oriented_sift.py);
   * ORB bits and Hamming matches bit-equal.
 """
 import jax
@@ -147,8 +149,8 @@ def test_detect_describe_image_matches_jax(image, family):
 
 
 def test_sift_descriptors_match_jax(image):
-    """Upright within 1e-5; oriented: a bin moved on at most 15% of the
-    descriptors (12% at this seed), the others within 1e-5."""
+    """Upright within 1e-5; oriented: a bin moved on at most 2% of the
+    descriptors (0.33% at this seed), the others within 1e-5."""
     rng = np.random.default_rng(4)
     rows = rng.uniform(16, 224, (1, 300)).astype(np.float32)
     cols = rng.uniform(16, 304, (1, 300)).astype(np.float32)
@@ -165,7 +167,7 @@ def test_sift_descriptors_match_jax(image):
         if upright:
             assert err.max() <= 1e-5
         else:
-            assert (err > 1e-5).mean() <= 0.15, (err > 1e-5).mean()
+            assert (err > 1e-5).mean() <= 0.02, (err > 1e-5).mean()
 
 
 @pytest.mark.parametrize("wta_k", [2, 3])
@@ -215,8 +217,8 @@ def test_cuda_sift_score_map_pool_kernels_equal_plain():
     """The SIFT score-map pool on the card: K4 against its plain version
     (records of the pool bit-equal), oriented and upright; and the card's
     pool against the CPU's (the same keypoints; descriptors within 1e-5,
-    oriented ones on all but 15% of the rows, whose rotated samples round
-    otherwise)."""
+    oriented ones on all but 2% of the rows: the card's integral image of
+    a patch sums in another order where its values are not integers)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU: the CUDA kernel has no CPU mode")
     from imagestitch_tpu_torch.core import feature_registration as tfr
@@ -236,4 +238,4 @@ def test_cuda_sift_score_map_pool_kernels_equal_plain():
         for a, b in zip(kern[:3], cpu[:3]):
             assert torch.equal(a.cpu(), b)
         bad = (kern[3].cpu() - cpu[3]).abs().amax(dim=-1) > 1e-5
-        assert bad.float().mean() <= (0.0 if upright else 0.15)
+        assert bad.float().mean() <= (0.0 if upright else 0.02)
