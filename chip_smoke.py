@@ -188,6 +188,20 @@ Phases, one line of output each:
                     rectify_final of it with two corners blanked, against
                     the CPU (resize within one level on at most 1e-5 of
                     the values, rectify equal).
+  13. mesh    — (u), the device mesh (parallel/), 4 shards sharing the
+                one card: (u1) feature_incre (default FeatureConfig, 11
+                frames padded to 12) and (u2) feature through
+                Stitcher(mesh=...), each == the single-device run and the
+                sharded plain run (records, panoramas), K1/K2 12 times;
+                (u3) compose_sharded of (a)'s offsets in all 8 gray modes
+                == the card's compose; (u4) the edge-sharded solve of
+                (s)'s graph and of the 1,000-tile grid, card == CPU bit
+                for bit; (u5) eval.stretch.run at 32 x 32 tiles of
+                96 x 128 and at 4 x 4 tiles of 1936 x 2584, the solved
+                RMSE below the chain's; (u6) eval.compose_bench and
+                eval.scaling at 1, 2 and 4 shards; (u7) the CLI's --mesh
+                auto stitches and --mesh 2 exits non-zero.  One "mesh (u)"
+                line; no number of it is a scaling measurement.
   9. pool split — (b)'s score-map pool once more: its device ms a frame
                 by stage (torch.profiler, tools/torch_pool_split.py) and
                 the card's busy share; last, because the profiler slows
@@ -1590,6 +1604,167 @@ def main():
           f"px; (t4) resize {pano_a.shape} -> {half.shape}, "
           f"{int((rd != 0).sum())} values off the CPU's, rectify == the "
           f"CPU's; walls (PhaseTimer, s) {timer.report()}; {smi}")
+
+    # ---- 13. path (u): the device mesh, 4 shards sharing the one card
+    # (the decomposition: halo, block rows, reduction order; no number
+    # here is a scaling measurement)
+    from imagestitch_tpu_torch.eval import compose_bench as eval_cb
+    from imagestitch_tpu_torch.eval import scaling as eval_sc
+    from imagestitch_tpu_torch.eval import stretch as eval_st
+    from imagestitch_tpu_torch.parallel import compose_sharded as pcs
+    from imagestitch_tpu_torch.parallel.mesh import make_mesh
+    t_u = time.perf_counter()
+    mesh4 = make_mesh(devices=[dev] * 4, axis="frames")
+    mesh4_cpu = make_mesh(devices=["cpu"] * 4)
+    batch11 = ImageBatch(gray=frames, color=None,
+                         files=[f"frame-{i}" for i in range(11)])
+    walls_u = {}
+
+    def mesh_path(label, cfg, expect, votes=True):
+        """The sharded run (counts from 0; after a warm-up), its plain run,
+        and the single-device run on the card: records (with the vote
+        counts unless ``votes`` is False) and panoramas equal.  Returns the
+        sharded run's launches and report."""
+        Stitcher(cfg, mesh=mesh4).stitch_batch(batch11)        # warm-up
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        res = Stitcher(cfg, mesh=mesh4).stitch_batch(batch11)
+        walls_u[label] = time.perf_counter() - t0
+        launches = read_counts(label, expect)
+        single = Stitcher(cfg, device=dev).stitch_batch(batch11)
+        plain = Stitcher(cfg.replace(use_kernels=False),
+                         mesh=mesh4).stitch_batch(batch11)
+        key = lambda rs: ([r.file_range for r in rs],
+                          [r.offsets for r in rs],
+                          records_of(rs[0].report)[slice(None) if votes
+                                                   else slice(0, 2)],
+                          records_of(rs[0].report)[3:])
+        for other, what in ((single, "the single-device run"),
+                            (plain, "the sharded plain run")):
+            if key(res) != key(other) or not all(
+                    np.array_equal(a.image, b.image)
+                    for a, b in zip(res, other)):
+                raise AssertionError(f"{label}: differs from {what}")
+        return launches, res[0].report
+
+    # (u1): the flagship, 12 frames on 4 shards (the 11th repeated as the
+    # 12th, whose records are never read), then the fallback on one device
+    launch_u1, rep_u1 = mesh_path(
+        "(u1) feature_incre sharded", base.replace(features=FeatureConfig()),
+        {"doh_select": 12, "describe_atlas": 12, "top2_l2_coords": None,
+         "doh_score_map": 2, "top2_l2": 0})
+    if rep_u1.offsets[:9] != offsets_a:
+        raise AssertionError(f"(u1): offsets {rep_u1.offsets}, (a) "
+                             f"{offsets_a}")
+    # (u2): whole-image feature through the halo'd all-pairs step (K3) and
+    # the oriented retry on one device (K5); the step matches each frame's
+    # top max_keypoints by score (JAX pooled_sharded.py:306), the single
+    # device the whole pool, so the vote counts are not compared
+    launch_u2, rep_u2 = mesh_path(
+        "(u2) feature sharded", base.replace(registration="feature",
+                                             features=FeatureConfig()),
+        {"doh_select": 12, "describe_atlas": 12, "top2_l2_coords": None},
+        votes=False)
+    # (u3): the sharded canvas of (a)'s offsets in every gray mode against
+    # the card's compose, bit-equal; each panorama left on the card, so
+    # the events time the composition alone (as path (k)'s)
+    modes_u3 = ["notFuse", "average", "maximum", "minimum",
+                "fadeInAndFadeOut", "trigonometric", "multiBandBlending",
+                "optimalSeamLine"]
+    ms_u3 = {}
+    for mode in modes_u3:
+        cfg_m = base.replace(fuse_method=mode)
+        (got, _), ms, _ = timed(torch, lambda: pcs.compose_sharded(
+            gray[:10], offsets_a, cfg_m, mesh4, return_device=True))
+        ref, ms_one, _ = timed(torch, lambda: compose_mod.compose(
+            gray[:10], offsets_a, cfg_m, return_device=True))
+        ms_u3[mode] = (ms, ms_one)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"(u3) {mode}: the sharded canvas differs "
+                                 f"from compose's")
+    stats_u3 = dict(pcs.LAST_COMPOSE_STATS)
+    # (u4): the edge-sharded solve of (s)'s graph and of (t1)'s 1,000-tile
+    # grid: card == CPU bit for bit at 4 shards
+    ms_u4 = []
+    for g_u4, it in ((g_card, None), (g_grid, 400)):
+        pos4, _, ms = timed(torch, lambda: pose_graph.solve(g_u4, iters=it,
+                                                            mesh=mesh4))
+        if pos4.tobytes() != pose_graph.solve(g_u4, iters=it,
+                                              mesh=mesh4_cpu).tobytes():
+            raise AssertionError(f"(u4): the card's sharded solve of "
+                                 f"{g_u4.n_nodes} nodes differs from the "
+                                 f"CPU's")
+        ms_u4.append(ms)
+    # (u5): the stretch flow at its default 32 x 32 grid of 96 x 128 tiles,
+    # and at 4 x 4 full-size tiles (cut from the JAX package's 16 x 16
+    # real-size run for time)
+    st_u5 = [eval_st.run(devices=[dev] * 4),
+             eval_st.run(grid=4, tile=(h, w), devices=[dev] * 4)]
+    for r in st_u5:
+        if not r.solved_rmse_px < r.chain_rmse_px or r.backend != "cuda":
+            raise AssertionError(f"(u5): {r}")
+    # (u6): compose_bench and scaling at 1, 2 and 4 shards
+    cb_u6 = [eval_cb.run(devices=[dev] * d, repeats=2) for d in (1, 2, 4)]
+    sc_u6 = eval_sc.run(device_counts=[1, 2, 4], devices=[dev] * 4,
+                        repeats=2)
+    if any(r.sharded_fuse_psums != 23 for r in cb_u6) or \
+            [p.n_devices for p in sc_u6.points] != [1, 2, 4]:
+        raise AssertionError(f"(u6): {cb_u6}, {sc_u6}")
+    # (u7): the CLI, --mesh auto (one card: a one-shard mesh) and --mesh 2
+    work = tempfile.mkdtemp(prefix="chip_smoke_u_")
+    try:
+        proj = os.path.join(work, "proj")
+        for i in range(4):
+            codec.imwrite(os.path.join(proj, "1", f"tile_{i:02d}.png"),
+                          frames[i])
+        argv = ["stitch", proj, os.path.join(work, "out"), "--gray",
+                "--file-extension", "png", "--output-extension", "png",
+                "--quiet"]
+        if cli.main(argv + ["--mesh", "auto"]) != 0 or os.listdir(
+                os.path.join(work, "out")) != ["stitching_result_1.png"]:
+            raise AssertionError("(u7): --mesh auto did not stitch")
+        try:
+            cli.main(argv + ["--mesh", "2"])
+            code_u7 = 0
+        except SystemExit as e:
+            code_u7, msg_u7 = e.code, str(e)
+        if code_u7 in (0, None):
+            raise AssertionError("(u7): --mesh 2 on one card exited 0")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"mesh (u): 4 shards on one card ({smi}; shards share the card: "
+          f"no scaling measurement); (u1) feature_incre {rep_u1.num_ok}/"
+          f"{rep_u1.num_pairs} pairs == (a) single-device and the sharded "
+          f"plain run, records and panorama, launches {launch_u1} (K1 and "
+          f"K2 12 against (a)'s 11: the 12th is the 11th frame repeated to "
+          f"fill the 4 shards, its records never read), warm wall "
+          f"{walls_u['(u1) feature_incre sharded']:.3f} s; (u2) feature "
+          f"{rep_u2.num_ok}/{rep_u2.num_pairs} pairs == (d) single-device, "
+          f"launches {launch_u2}, warm wall "
+          f"{walls_u['(u2) feature sharded']:.3f} s; (u3) compose_sharded of "
+          f"(a)'s offsets == compose in all 8 gray modes, device ms "
+          f"(events, sharded/compose) "
+          + ", ".join(f"{k} {a:.2f}/{b:.2f}" for k, (a, b) in ms_u3.items())
+          + f", {stats_u3['fuse_psums']} psums of "
+          f"{stats_u3['psum_payload_bytes']} B a panorama; (u4) sharded "
+          f"solve card == CPU bit for bit: (s)'s graph {ms_u4[0]:.1f} ms, "
+          f"1,000 tiles x 400 steps {ms_u4[1]:.1f} ms (events); (u5) stretch "
+          + "; ".join(f"{r.n_tiles} x {r.tile_shape} tiles: "
+                      f"{r.registered_ok} registered, {r.loop_edges} loop "
+                      f"edges, RMSE chain {r.chain_rmse_px} -> solved "
+                      f"{r.solved_rmse_px} px, s register {r.register_s} "
+                      f"verify {r.verify_s} solve {r.solve_s} compose "
+                      f"{r.compose_s}, canvas {r.canvas_shape}"
+                      for r in st_u5)
+          + "; (u6) compose_bench fps single/sharded "
+          + ", ".join(f"{r.n_devices} shards {r.single_fps}/{r.sharded_fps}"
+                      for r in cb_u6)
+          + "; scaling (phase) fps "
+          + ", ".join(f"{p.n_devices} shards {p.frames_per_s}"
+                      for p in sc_u6.points)
+          + f"; (u7) --mesh auto stitched, --mesh 2 exited with "
+          f"{msg_u7!r}; {time.perf_counter() - t_u:.1f} s in all")
 
     # ---- 9. the score-map pool's device time a frame, by stage (path
     # (b)'s pool).  Last: after torch.profiler has traced the card, every

@@ -12,7 +12,9 @@ color (the default) or gray (multiband and the optimal seam: gray only),
 on the device or, with ``stream_output``, on the host in float64;
 pipelined file ingest, registration checkpoints,
 ``Stitcher.stitch_project_set`` and the CLI (``python -m
-imagestitch_tpu_torch.cli stitch ...``), in PyTorch, with hand-written
+imagestitch_tpu_torch.cli stitch ...``); the same Stitcher over a device
+mesh (``parallel/``: frame-sharded registration, the sharded canvas, the
+edge-sharded solve, the multi-process runtime), in PyTorch, with hand-written
 CUDA kernels for Hopper (``csrc/``) where the JAX package runs Pallas
 kernels, and the shared C++ host runtime (``native/``) where it runs
 that.  Imports torch only — never jax or the JAX package.

@@ -2,9 +2,10 @@
 
 Port of ``imagestitch_tpu/cli.py``: the same ``stitch`` subcommand with the
 same arguments, defaults and configuration (color composition unless
-``--gray``), with ``--device`` in place of the JAX package's ``--platform``
-and ``--mesh``.  Options the port does not run yet parse, and then
-``Stitcher`` raises ``NotImplementedError`` naming their ROADMAP item.
+``--gray``), with ``--device`` in place of the JAX package's
+``--platform``.  ``--mesh N`` drives the first N cards as one mesh (JAX
+cli.py:81-82, :149-156; ``auto``: every card), or N CPU shards with
+``--device cpu``; asking for more cards than there are exits non-zero.
 
   python -m imagestitch_tpu_torch.cli stitch demoImages/dendriticCrystal \\
       out/dc --registration feature_incre --direction 1 --direct-incre 1
@@ -76,6 +77,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "solver before composition")
     s.add_argument("--report", help="write per-pair JSON report here")
     s.add_argument("--quiet", action="store_true")
+    s.add_argument("--mesh", default=None,
+                   help="shard count of the device mesh ('auto' = "
+                        "every visible card): frame-sharded registration "
+                        "and sharded-canvas composition; with --device cpu, "
+                        "that many CPU shards")
     s.add_argument("--device", default="cuda",
                    help="torch device that registers and composes "
                         "(default: cuda, which raises without CUDA; "
@@ -120,7 +126,17 @@ def main(argv=None) -> int:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit(f"--device {args.device}: torch.cuda.is_available() "
                          f"is False; pass --device cpu to run on the CPU")
-    st = Stitcher(config_from_args(args), device=device)
+    mesh = None
+    if args.mesh:
+        from .parallel.mesh import make_mesh
+        n = torch.cuda.device_count() if args.mesh == "auto" else \
+            int(args.mesh)
+        try:
+            mesh = make_mesh(n, axis="frames", devices=[device] * n
+                             if device.type == "cpu" else None)
+        except RuntimeError as e:
+            raise SystemExit(f"--mesh {args.mesh}: {e}")
+    st = Stitcher(config_from_args(args), mesh=mesh, device=device)
     written = st.stitch_project_set(
         args.project, args.output, args.file_num, start_num=args.start_num,
         file_extension=args.file_extension,

@@ -465,14 +465,25 @@ def _pool_attempt_multi(pool, idx: torch.Tensor, bounds_list, k_sel: int,
     sides = [(_select_strip(pool, idx, ba, k_sel),
               _select_strip(pool, idx + 1, bb, k_sel))
              for ba, bb in bounds_list]
-    cat = lambda side, j: torch.cat([s[side][j] for s in sides])
-    ra, ca, va, da = (cat(0, j) for j in range(4))
-    rb, cb, vb, db = (cat(1, j) for j in range(4))
+    return _match_vote_packed([a for a, _ in sides], [b for _, b in sides],
+                              bounds_list, metric, search_ratio,
+                              max_distance, use_kernels, vote_method)
+
+
+def _match_vote_packed(sel_a, sel_b, bounds_list, metric: str,
+                       search_ratio: float, max_distance: float,
+                       use_kernels: bool, vote_method: str) -> torch.Tensor:
+    """The match and vote of ``_pool_attempt_multi``: each config's strip
+    selections of its P A frames (``sel_a[c]``) and of the B frame each is
+    paired with (``sel_b[c]``) -> the packed (n_configs, 6, P) tensor."""
+    cat = lambda sel, j: torch.cat([s[j] for s in sel])
+    ra, ca, va, da = (cat(sel_a, j) for j in range(4))
+    rb, cb, vb, db = (cat(sel_b, j) for j in range(4))
     _, ok, rb_sel, cb_sel = match.match_batch_coords(
         da, db, va, vb, rb, cb, search_ratio, max_distance, metric,
         use_kernel=use_kernels)
     if vote_method == "ransac":
-        p = idx.shape[0]
+        p = sel_a[0][0].shape[0]
         # each config's strip origins (A row, A col, B row, B col),
         # repeated over its P pairs
         org = torch.tensor([[ba[0], ba[2], bb[0], bb[2]]

@@ -295,12 +295,25 @@ def register_sequence_phase_whole(images, cfg: StitchConfig, mesh=None,
     (the full linear cross-correlation; padding only to the optimal DFT
     size >= dim would alias any shift beyond half of it), mean subtraction
     and the response renormalized to image area (``_phase_whole``).
+
+    With a ``mesh`` (JAX :305-320) the pairs run on one device, the mesh's
+    first, as long as one pair's padded surfaces fit
+    ``cfg.phase_hbm_budget`` (about 0.97 GB at 1936x2584, under the 2 GiB
+    default).  Beyond it, on two or more shards, the JAX package splits
+    each FFT over the mesh (parallel/tp_fft.py), which is on ROADMAP's
+    do-not-port list: that raises ``NotImplementedError``.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "the whole-image phase path over a device mesh is not ported: a "
-            "mesh is ROADMAP Queue 1 item 22, and its tensor-parallel FFT "
-            "(parallel/tp_fft.py) is on ROADMAP's do-not-port list")
+        n, h, w = images.shape
+        working = 6 * phase_corr.optimal_dft_size(2 * h) * \
+            phase_corr.optimal_dft_size(2 * w) * 8
+        if mesh.size > 1 and working > cfg.phase_hbm_budget:
+            raise NotImplementedError(
+                f"register_sequence_phase_whole: {working} bytes of padded "
+                f"surfaces a pair exceed phase_hbm_budget "
+                f"{cfg.phase_hbm_budget}; the JAX package's tensor-parallel "
+                f"FFT (parallel/tp_fft.py) is on ROADMAP's do-not-port list")
+        device = mesh.devices[0]
     images = _as_images(images, device, "register_sequence_phase_whole")
     n, h, w = images.shape
     if n < 2:

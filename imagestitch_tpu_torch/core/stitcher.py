@@ -13,10 +13,19 @@ Port of the single-device path of ``imagestitch_tpu/core/stitcher.py``
   * ``stitch_files``       — pipelined ingest (io/prefetch.py), fused with
     the pool on the gray ``feature_incre`` path;
   * ``stitch_project_set`` — imageSetStitchWithMutiple (Stitcher.py:153-182).
+
+With a ``mesh`` of two or more shards (JAX stitcher.py:64-85, :186-190,
+:276-298) the same Stitcher runs frame-sharded registration
+(parallel/pooled_sharded.py: ``feature_incre`` unless strict-ROI detection
+or enhancement is on, ``feature`` unless enhancement is on), composes on
+the sharded canvas (parallel/compose_sharded.py) unless the global solver
+runs, and keeps decoded frames on the host for the sharded registrars to
+place.  Records and panoramas are the single-device ones.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import os
 import time
@@ -47,27 +56,32 @@ def _host(x) -> np.ndarray:
 
 
 class Stitcher:
-    """The engine facade for one configuration on one device.
+    """The engine facade for one configuration on one device or a mesh.
 
     ``checkpoint_dir``: registration records are saved there per file list
     and loaded instead of registering again.  ``device``: where
     registration and composition run (a ``torch.device`` or its name), the
     card unless the caller asks for the CPU (``device="cpu"``); a CUDA
-    device without CUDA raises.  The search direction persists across calls
-    (reference parity: Stitcher.direction is a class attribute,
+    device without CUDA raises.  ``mesh``: a ``parallel.mesh.Mesh``; with
+    one, ``device`` is the mesh's first device, and a mesh of two or more
+    shards takes the sharded paths.  The search direction persists across
+    calls (reference parity: Stitcher.direction is a class attribute,
     Stitcher.py:361).
     """
 
     def __init__(self, cfg: StitchConfig, checkpoint_dir: Optional[str] = None,
                  mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError("a device mesh is not ported yet "
-                                      "(ROADMAP Queue 1 item 22)")
         feature_registration.check_supported(cfg)
+        if mesh is not None:
+            device = mesh.devices[0]
         self.device = resolve_device(device, "Stitcher")
         self.cfg = cfg
         self.checkpoint_dir = checkpoint_dir
+        self.mesh = mesh
         self._direction = cfg.direction
+
+    def _sharded(self) -> bool:
+        return self.mesh is not None and self.mesh.size > 1
 
     def _to_device(self, x) -> torch.Tensor:
         return torch.as_tensor(x).to(self.device)
@@ -87,7 +101,19 @@ class Stitcher:
         }.get(cfg.registration)
         if registrar is None:
             raise ValueError(cfg.registration)
-        recs = registrar(self._to_device(gray), cfg, device=self.device)
+        if cfg.registration == "phase" and self.mesh is not None:
+            registrar = functools.partial(registrar, mesh=self.mesh)
+        if self._sharded() and not cfg.enhance.enabled and (
+                cfg.registration == "feature" or (
+                    cfg.registration == "feature_incre"
+                    and not cfg.features.strict_roi_detect)):
+            from ..parallel import pooled_sharded
+            sharded = (pooled_sharded.register_sequence_features_sharded
+                       if cfg.registration == "feature" else
+                       pooled_sharded.register_sequence_features_incre_sharded)
+            recs = sharded(gray, cfg, self.mesh)
+        else:
+            recs = registrar(self._to_device(gray), cfg, device=self.device)
         self._after_register(recs)
         return recs
 
@@ -154,6 +180,11 @@ class Stitcher:
                 img = self._solve_and_compose(batch, recs, gray,
                                               compose_src[start:end + 1],
                                               start, end)
+            elif self._sharded():
+                from ..parallel import compose_sharded
+                img = compose_sharded.compose_sharded(
+                    compose_src[start:end + 1], seg_offsets, self.cfg,
+                    self.mesh)
             else:
                 img = self._compose_segment(batch, compose_src[start:end + 1],
                                             seg_offsets, start, end)
@@ -259,10 +290,12 @@ class Stitcher:
         On the gray pooled ``feature_incre`` path (no strict-ROI detection,
         no enhancement) without checkpoints the decode overlaps the pool
         itself (io/prefetch.register_sequence_pipelined);
-        the other strategies register the loaded batch."""
+        the other strategies register the loaded batch.  A mesh of two or
+        more shards keeps the frames on the host, for the sharded paths to
+        place."""
         from ..io import prefetch
         cfg = self.cfg
-        if (cfg.registration == "feature_incre"
+        if (cfg.registration == "feature_incre" and not self._sharded()
                 and self.checkpoint_dir is None
                 and not cfg.features.strict_roi_detect
                 and not cfg.enhance.enabled and not cfg.color_mode):
@@ -274,7 +307,8 @@ class Stitcher:
                                        files=list(files), gray_host=gray_host)
             return self.stitch_batch(batch, recs=recs)
         return self.stitch_batch(prefetch.load_batch_pipelined(
-            files, cfg.color_mode, device=self.device))
+            files, cfg.color_mode, to_device=not self._sharded(),
+            device=self.device))
 
     # -- dataset orchestration (L4) ----------------------------------------
 

@@ -1,11 +1,11 @@
 """Synthetic serpentine tile grid: the pose-graph solve at scale.
 
-Port of ``imagestitch_tpu/eval/synthetic.py`` for one device: a large
-serpentine-scanned tile grid whose pairwise offsets (Gaussian noise, and a
-few gross outliers at low confidence) feed the weighted least-squares
-solve of ``solver/pose_graph.solve``.  Reports the solve's accuracy
-against the truth beside the reference's prefix-sum chain, and its time.
-The edge-sharded solve over several devices is ROADMAP Queue 1 item 22.
+Port of ``imagestitch_tpu/eval/synthetic.py``: a large serpentine-scanned
+tile grid whose pairwise offsets (Gaussian noise, and a few gross outliers
+at low confidence) feed the weighted least-squares solve of
+``solver/pose_graph.solve``, edge-sharded over a mesh of ``n_devices``
+shards when there are two or more.  Reports the solve's accuracy against
+the truth beside the reference's prefix-sum chain, and its time.
 """
 from __future__ import annotations
 
@@ -15,8 +15,10 @@ import time
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..device import resolve_device
+from ..parallel.mesh import make_mesh
 from ..solver import pose_graph as pg
 
 
@@ -88,19 +90,22 @@ def _chain(g: pg.PoseGraph, gh: int, gw: int, n: int) -> np.ndarray:
 
 def run(gh: int = 25, gw: int = 40, n_devices: Optional[int] = None,
         iters: int = 400, seed: int = 0, device="cuda") -> GridResult:
-    """Solve the ``gh`` x ``gw`` grid on ``device`` (the card unless the
-    caller passes ``device="cpu"``), once to warm up and once timed (the
-    solve returns host positions, so the time ends after the readback)."""
-    nd = n_devices or 1
-    if nd > 1:
-        raise NotImplementedError("eval.synthetic.run(n_devices > 1): the "
-                                  "edge-sharded solve is not ported yet "
-                                  "(ROADMAP Queue 1 item 22)")
+    """Solve the ``gh`` x ``gw`` grid, once to warm up and once timed (the
+    solve returns host positions, so the time ends after the readback).
+    ``n_devices`` (default: every card, as JAX :66-67): two or more take
+    the edge-sharded solve over a mesh of that many shards, the first
+    cards, or shards sharing ``device`` when it is the CPU; one solves on
+    ``device`` (the card unless the caller passes ``device="cpu"``)."""
     dev = resolve_device(device, "eval.synthetic.run")
+    nd = n_devices or max(torch.cuda.device_count(), 1)
+    mesh = None
+    if nd > 1:
+        mesh = make_mesh(nd, devices=[dev] * nd if dev.type == "cpu"
+                         else None)
     g, truth = make_grid_graph(gh, gw, seed=seed)
-    pg.solve(g, iters=iters, device=dev)
+    pg.solve(g, iters=iters, mesh=mesh, device=dev)
     t0 = time.perf_counter()
-    x = pg.solve(g, iters=iters, device=dev)
+    x = pg.solve(g, iters=iters, mesh=mesh, device=dev)
     dt = time.perf_counter() - t0
     err = np.abs((x - x[0]) - (truth - truth[0])).mean()
     chain_err = np.abs(_chain(g, gh, gw, len(truth)) - truth).mean()

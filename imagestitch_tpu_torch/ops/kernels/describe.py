@@ -39,10 +39,11 @@ def _launch(atlas, r0, c0, extended):
         return out                       # nothing to launch
     gw = weight_table(atlas.device).reshape(-1)
     lib = _build.library()
-    err = lib.describe_launch(
-        atlas.data_ptr(), ah, aw, r0.data_ptr(), c0.data_ptr(), k,
-        gw.data_ptr(), int(extended), out.data_ptr(),
-        torch.cuda.current_stream(atlas.device).cuda_stream)
+    with torch.cuda.device(atlas.device):      # the launch's current card
+        err = lib.describe_launch(
+            atlas.data_ptr(), ah, aw, r0.data_ptr(), c0.data_ptr(), k,
+            gw.data_ptr(), int(extended), out.data_ptr(),
+            torch.cuda.current_stream(atlas.device).cuda_stream)
     _build.check(err, "describe_atlas")
     LAUNCHES += 1
     return out

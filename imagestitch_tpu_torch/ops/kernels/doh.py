@@ -195,12 +195,13 @@ def _launch(atlas: torch.Tensor, bands, threshold: float, n_scales: int,
                   for _ in range(3))
     col = torch.empty(n, dtype=torch.int32, device=dev)
     scratch = torch.empty(4 * entries, dtype=torch.float32, device=dev)
-    err = _build.library().doh_select_launch(
-        atlas.data_ptr(), atlas.shape[1], len(bands), table_b.ctypes.data,
-        float(threshold), n_scales, radii.ctypes.data, s4.ctypes.data,
-        table.ctypes.data, sc.data_ptr(), col.data_ptr(), dr.data_ptr(),
-        dc.data_ptr(), scratch.data_ptr(), entries,
-        torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):               # the launch's current card
+        err = _build.library().doh_select_launch(
+            atlas.data_ptr(), atlas.shape[1], len(bands), table_b.ctypes.data,
+            float(threshold), n_scales, radii.ctypes.data, s4.ctypes.data,
+            table.ctypes.data, sc.data_ptr(), col.data_ptr(), dr.data_ptr(),
+            dc.data_ptr(), scratch.data_ptr(), entries,
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "doh_select")
     LAUNCHES += 1
     out, o0 = [], 0
@@ -346,11 +347,12 @@ def _launch_score_map(atlas: torch.Tensor, bands, threshold: float,
         counts = torch.empty(len(bands) + 1, dtype=torch.int32,
                              device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
-    err = _build.library().doh_score_map_launch(
-        atlas.data_ptr(), atlas.shape[1], len(bands), table_b.ctypes.data,
-        float(threshold), n_scales, radii.ctypes.data, s4.ctypes.data,
-        table.ctypes.data, raw.data_ptr(), ptr(score), ptr(keys), cap,
-        ptr(counts), torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):               # the launch's current card
+        err = _build.library().doh_score_map_launch(
+            atlas.data_ptr(), atlas.shape[1], len(bands), table_b.ctypes.data,
+            float(threshold), n_scales, radii.ctypes.data, s4.ctypes.data,
+            table.ctypes.data, raw.data_ptr(), ptr(score), ptr(keys), cap,
+            ptr(counts), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "doh_score_map")
     SCORE_MAP_LAUNCHES += 1
     return raw, score, keys, counts
@@ -395,9 +397,10 @@ def launch_score_map_octaves(atlas: torch.Tensor, bands, kk_per_band,
         atlas.contiguous(), bands, threshold, n_scales, base_sigma, spacing,
         full_map=False)
     host = torch.empty(len(bands) + 1, dtype=torch.int32, pin_memory=True)
-    host.copy_(counts, non_blocking=True)
-    ready = torch.cuda.Event()
-    ready.record(torch.cuda.current_stream(atlas.device))
+    with torch.cuda.device(atlas.device):
+        host.copy_(counts, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(atlas.device))
 
     def finish():
         ready.synchronize()

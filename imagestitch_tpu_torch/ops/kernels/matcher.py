@@ -115,18 +115,20 @@ def _run(name, da, db, valid_b, rows_b=None, cols_b=None):
     stream = torch.cuda.current_stream(dev).cuda_stream
     lib = _build.library()
     if rows_b is None:
-        err = lib.matcher_top2_launch(
-            da.data_ptr(), db.data_ptr(), valid_b.data_ptr(), b, ka, kb, d,
-            splits, scratch, d0.data_ptr(), i0.data_ptr(), d1.data_ptr(),
-            stream)
+        with torch.cuda.device(dev):           # the launch's current card
+            err = lib.matcher_top2_launch(
+                da.data_ptr(), db.data_ptr(), valid_b.data_ptr(), b, ka, kb,
+                d, splits, scratch, d0.data_ptr(), i0.data_ptr(),
+                d1.data_ptr(), stream)
         _build.check(err, name)
         return d0, i0, d1
     rb_sel, cb_sel = out_f(), out_f()
-    err = lib.matcher_launch(
-        da.data_ptr(), db.data_ptr(), valid_b.data_ptr(), rows_b.data_ptr(),
-        cols_b.data_ptr(), b, ka, kb, d, splits, scratch, d0.data_ptr(),
-        i0.data_ptr(), d1.data_ptr(), rb_sel.data_ptr(), cb_sel.data_ptr(),
-        stream)
+    with torch.cuda.device(dev):               # the launch's current card
+        err = lib.matcher_launch(
+            da.data_ptr(), db.data_ptr(), valid_b.data_ptr(),
+            rows_b.data_ptr(), cols_b.data_ptr(), b, ka, kb, d, splits,
+            scratch, d0.data_ptr(), i0.data_ptr(), d1.data_ptr(),
+            rb_sel.data_ptr(), cb_sel.data_ptr(), stream)
     _build.check(err, name)
     return d0, i0, d1, rb_sel, cb_sel
 

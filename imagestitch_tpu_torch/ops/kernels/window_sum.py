@@ -43,9 +43,11 @@ def _launch(atlas, r0, ca, rows, cols):
     k = r0.shape[0]
     out = torch.empty((k, cols), dtype=torch.float32, device=atlas.device)
     lib = _build.library()
-    err = lib.window_colsum_launch(
-        atlas.data_ptr(), ah, aw, r0.data_ptr(), ca.data_ptr(), k, rows, cols,
-        out.data_ptr(), torch.cuda.current_stream(atlas.device).cuda_stream)
+    with torch.cuda.device(atlas.device):      # the launch's current card
+        err = lib.window_colsum_launch(
+            atlas.data_ptr(), ah, aw, r0.data_ptr(), ca.data_ptr(), k, rows,
+            cols, out.data_ptr(),
+            torch.cuda.current_stream(atlas.device).cuda_stream)
     _build.check(err, "window_colsum")
     LAUNCHES += 1
     return out

@@ -19,7 +19,15 @@ Two choices keep the card's run equal to itself from run to run:
     residual's square norm is at most 1e-10) runs as ``iters`` steps
     that keep their state once the residual is that small, so the host
     reads nothing back until the end.
-The edge-sharded solve over a device mesh is ROADMAP Queue 1 item 22.
+
+Over a device mesh (JAX pose_graph.py:122-165) the edges are padded with
+zero weight to a multiple of the shard count and split into equal blocks,
+one a shard; each shard builds the rhs and the Laplacian's matvec over its
+own edges, and ``parallel.mesh.psum`` adds the shards' partial sums in
+shard order.  The CG's vectors live on shard 0's device, replicated to
+every shard for its matvec.  The card's positions equal the CPU's at the
+same shard count; they are not the single-device solve's, whose sums run
+in another order.
 """
 from __future__ import annotations
 
@@ -137,39 +145,77 @@ def _cg(matvec, b: torch.Tensor, iters: int) -> torch.Tensor:
     return x
 
 
+class _Edges:
+    """One block of edges on ``dev``: endpoints, weights, measurements and
+    the node table of the block's scatters."""
+
+    def __init__(self, ea, eb, m, w, n: int, dev):
+        on = lambda a, dt: torch.as_tensor(np.asarray(a)).to(dev, dt)
+        self.ea = on(ea, torch.int64)
+        self.eb = on(eb, torch.int64)
+        self.m = on(m, torch.float32).reshape(-1, 2)
+        self.w = on(w, torch.float32)
+        self.table = on(_node_table(np.asarray(ea), np.asarray(eb), n),
+                        torch.int64)
+
+    def matvec(self, p: torch.Tensor) -> torch.Tensor:
+        return _edge_matvec(p, self.ea, self.eb, self.w, self.table)
+
+    def rhs(self) -> torch.Tensor:
+        return _edge_rhs(self.m, self.w, self.table)
+
+
+def _pin(y: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """The gauge prior on node 0: y[0] += _PIN * p[0]."""
+    return torch.cat([y[:1] + _PIN * p[:1], y[1:]])
+
+
 def solve(graph: PoseGraph, iters: Optional[int] = None, mesh=None,
           device="cuda") -> np.ndarray:
     """Absolute (N, 2) float32 poses with pose[0] == (0, 0), solved on
-    ``device`` (the card unless the caller passes ``device="cpu"``).
-    ``iters``: at most this many CG steps (default max(2 N, 64)).  A
-    ``mesh`` (the edge-sharded solve) is ROADMAP Queue 1 item 22."""
-    if mesh is not None:
-        raise NotImplementedError("solve(mesh=...): the edge-sharded solve "
-                                  "is not ported yet (ROADMAP Queue 1 item "
-                                  "22)")
-    dev = resolve_device(device, "solve")
+    ``device`` (the card unless the caller passes ``device="cpu"``) or,
+    with a ``mesh`` (``parallel.mesh.Mesh``), edge-sharded over its
+    devices.  ``iters``: at most this many CG steps (default
+    max(2 N, 64))."""
     n = graph.n_nodes
     iters = iters if iters is not None else max(2 * n, 64)
-    on = lambda a, dt: torch.as_tensor(np.asarray(a)).to(dev, dt)
-    ea = on(graph.edges_a, torch.int64)
-    eb = on(graph.edges_b, torch.int64)
-    m = on(graph.measurements, torch.float32).reshape(-1, 2)
-    w = on(graph.weights, torch.float32)
-    table = on(_node_table(graph.edges_a, graph.edges_b, n), torch.int64)
-
-    def matvec(p):
-        y = _edge_matvec(p, ea, eb, w, table)
-        return torch.cat([y[:1] + _PIN * p[:1], y[1:]])
-
-    x = _cg(matvec, _edge_rhs(m, w, table), iters)
+    if mesh is not None:
+        from ..parallel.mesh import pad_to_multiple
+        d = mesh.size
+        pad = pad_to_multiple(max(len(graph.edges_a), d), d) - \
+            len(graph.edges_a)
+        ea = np.pad(graph.edges_a, (0, pad))
+        eb = np.pad(graph.edges_b, (0, pad))
+        m = np.pad(graph.measurements, ((0, pad), (0, 0)))
+        w = np.pad(graph.weights, (0, pad))   # zero weight disables padding
+        x = sharded_solve_fn(mesh, n, iters)(ea, eb, m, w)
+    else:
+        dev = resolve_device(device, "solve")
+        edges = _Edges(graph.edges_a, graph.edges_b, graph.measurements,
+                       graph.weights, n, dev)
+        x = _cg(lambda p: _pin(edges.matvec(p), p), edges.rhs(), iters)
     return (x - x[0:1]).cpu().numpy()
 
 
 def sharded_solve_fn(mesh, n: int, iters: int):
-    """The edge-sharded CG solve over a device mesh: ROADMAP Queue 1 item
-    22."""
-    raise NotImplementedError("sharded_solve_fn: the edge-sharded solve is "
-                              "not ported yet (ROADMAP Queue 1 item 22)")
+    """The edge-sharded CG solve over ``mesh`` as a callable of the padded
+    edge arrays (ea, eb, m, w), whose length is a multiple of the shard
+    count; returns the (n, 2) iterate on shard 0's device."""
+    from ..parallel.mesh import psum, replicate
+
+    def run(ea, eb, m, w):
+        per = len(ea) // mesh.size
+        blocks = [_Edges(ea[i * per:(i + 1) * per], eb[i * per:(i + 1) * per],
+                         m[i * per:(i + 1) * per], w[i * per:(i + 1) * per],
+                         n, dev) for i, dev in enumerate(mesh.devices)]
+
+        def matvec(p):
+            ys = [e.matvec(pi) for e, pi in zip(blocks, replicate(p, mesh))]
+            return _pin(psum(ys, mesh)[0], p)
+
+        return _cg(matvec, psum([e.rhs() for e in blocks], mesh)[0], iters)
+
+    return run
 
 
 def chain_positions(offsets: Sequence[Tuple[float, float]]) -> np.ndarray:

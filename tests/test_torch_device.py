@@ -5,6 +5,7 @@ import pytest
 import torch
 
 from imagestitch_tpu_torch import StitchConfig, Stitcher, cli
+from imagestitch_tpu_torch.parallel.mesh import Mesh, make_mesh
 
 
 @pytest.fixture
@@ -15,10 +16,17 @@ def no_cuda(monkeypatch):
 def test_stitcher_without_device_needs_cuda(no_cuda):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Stitcher(StitchConfig())
-    # an unported configuration still names its ROADMAP item (or list)
-    # first; a ported option needs the card like any other
-    with pytest.raises(NotImplementedError, match="item 22"):
-        Stitcher(StitchConfig(), mesh=object())
+    # a mesh: the Stitcher's device is the mesh's first, so a mesh of
+    # cards needs the card, and a mesh of CPU shards runs; make_mesh with
+    # no devices takes cards, and there are none.  An unported
+    # configuration still names its ROADMAP list first; a ported option
+    # needs the card like any other
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Stitcher(StitchConfig(), mesh=Mesh(["cuda:0", "cuda:0"]))
+    assert Stitcher(StitchConfig(), mesh=make_mesh(
+        devices=["cpu"] * 2)).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="0 CUDA"):
+        make_mesh(1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Stitcher(StitchConfig(compute_dtype="bfloat16"))
     for ported in (dict(fuse_method="average"), dict(use_global_solver=True)):

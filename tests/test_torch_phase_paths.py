@@ -24,6 +24,7 @@ from imagestitch_tpu_torch import Stitcher
 from imagestitch_tpu_torch.convert import config_from_jax
 from imagestitch_tpu_torch.core import registration as treg
 from imagestitch_tpu_torch.io.dataset import ImageBatch
+from imagestitch_tpu_torch.parallel.mesh import make_mesh
 from imagestitch_tpu_torch.utils import synthetic
 from test_torch_jax_chain import (assert_segments_equal,
                                   route_pools_as_on_tpu, two_threads)
@@ -101,9 +102,11 @@ def test_register_sequence_phase_whole_matches_jax(frames):
     assert [r.ok for r in got] == [True, True, True, False]
     for r, t in zip(got, truth):
         assert np.abs(np.subtract(r.offset, t)).max() < 1
-    with pytest.raises(NotImplementedError, match="item 22"):
-        treg.register_sequence_phase_whole(frames, config_from_jax(jcfg),
-                                           mesh=object(), device="cpu")
+    # a mesh within phase_hbm_budget runs on its first device: the same
+    # records (the over-budget raise: tests/test_torch_parallel_eval.py)
+    mesh = make_mesh(devices=["cpu"] * 2)
+    assert treg.register_sequence_phase_whole(
+        frames, config_from_jax(jcfg), mesh=mesh) == got
 
 
 def test_register_sequence_hybrid_matches_jax(low_contrast, monkeypatch):

@@ -27,6 +27,7 @@ from imagestitch_tpu_torch import (FeatureConfig, StitchConfig, Stitcher,
 from imagestitch_tpu_torch.convert import config_from_jax
 from imagestitch_tpu_torch.io import codec
 from imagestitch_tpu_torch.io.dataset import ImageBatch, list_project_images
+from imagestitch_tpu_torch.parallel.mesh import make_mesh
 from imagestitch_tpu_torch.utils import synthetic
 
 H, W = 320, 400
@@ -175,11 +176,12 @@ def test_outside_the_slice_raises(frames, upright_records, change):
 
 
 def test_mesh_and_oriented_fallback_raise(frames, monkeypatch):
-    """A mesh still raises.  The default configuration (auto_upright) no
-    longer does: upright registers pairs 0-2, pair 3 (unrelated frame) fails
+    """Neither a mesh nor the default configuration (auto_upright) raises
+    any more: upright registers pairs 0-2, pair 3 (unrelated frame) fails
     with some matches, and the oriented fallback retries it exactly as the
     JAX package does (the whole configuration's stitch is held against the
-    JAX Stitcher in test_torch_fallback.py)."""
+    JAX Stitcher in test_torch_fallback.py); a mesh of two CPU shards gives
+    the same records, its fallback on the mesh's first device."""
     from imagestitch_tpu_torch.core import feature_registration as tfr
     from test_torch_jax_chain import (assert_records_equal,
                                       count_score_map_frames,
@@ -187,8 +189,6 @@ def test_mesh_and_oriented_fallback_raise(frames, monkeypatch):
     frames, _ = frames
     cfg = StitchConfig(color_mode=False,
                        features=FeatureConfig(max_keypoints=256))
-    with pytest.raises(NotImplementedError, match="item 22"):
-        Stitcher(cfg, mesh=object(), device="cpu")
     up = Stitcher(cfg.replace(features=dataclasses.replace(
         cfg.features, upright=True)), device="cpu").register(frames)
     assert not up[3].ok and up[3].confidence > 0
@@ -202,3 +202,7 @@ def test_mesh_and_oriented_fallback_raise(frames, monkeypatch):
                          features=JFeatureConfig(max_keypoints=256))
     assert_records_equal(recs,
                          jfr.register_sequence_features_incre(frames, jcfg))
+    calls.clear()
+    mesh = make_mesh(devices=["cpu"] * 2)
+    assert Stitcher(cfg, mesh=mesh).register(frames) == recs
+    assert calls == [(H, W)] * 2

@@ -31,6 +31,7 @@ from imagestitch_tpu.solver import loop_closure as jlc
 from imagestitch_tpu.solver import pose_graph as jpg
 from imagestitch_tpu_torch import StitchConfig, compose_host_positions
 from imagestitch_tpu_torch.core import compose as tcompose
+from imagestitch_tpu_torch.parallel.mesh import make_mesh
 from imagestitch_tpu_torch.solver import loop_closure as tlc
 from imagestitch_tpu_torch.solver import pose_graph as tpg
 from imagestitch_tpu_torch.utils import synthetic
@@ -113,11 +114,20 @@ def test_node_table_sums_in_scatter_order():
 
 
 def test_mesh_raises_naming_item_22():
+    """A mesh no longer raises: one edge over two shards (the second shard
+    holds a zero-weight padding edge) solves to the chain, and
+    ``sharded_solve_fn`` runs on padded edge arrays."""
     g = tpg.PoseGraph.from_chain([(1.0, 2.0)])
-    with pytest.raises(NotImplementedError, match="item 22"):
-        tpg.solve(g, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 22"):
-        tpg.sharded_solve_fn(object(), 2, 4)
+    mesh = make_mesh(devices=["cpu"] * 2)
+    np.testing.assert_allclose(tpg.solve(g, mesh=mesh),
+                               [[0, 0], [1, 2]], atol=1e-4)
+    x = tpg.sharded_solve_fn(mesh, 2, 4)(
+        np.asarray([0, 0], np.int32), np.asarray([1, 0], np.int32),
+        np.asarray([[1, 2], [0, 0]], np.float32),
+        np.asarray([1, 0], np.float32))
+    assert x.shape == (2, 2)
+    np.testing.assert_allclose((x - x[:1]).numpy(), [[0, 0], [1, 2]],
+                               atol=1e-4)
 
 
 def test_verify_edges_and_close_loops_match_jax(grid):
