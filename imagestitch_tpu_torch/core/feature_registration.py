@@ -34,8 +34,10 @@ path take the XLA detector's pool.
 Every path votes by ``offset_calculate``: the mode, homography RANSAC
 (``ransac.py``, with each pair's key taken from the JAX package's batch
 and slot) or translation RANSAC.  The featureMethod families: SURF and
-SIFT match by L2 (K3, K5), ORB by Hamming distance; the bf16 detector
-raises (``check_supported``).
+SIFT match by L2 (K3, K5), ORB by Hamming distance.
+``compute_dtype="bfloat16"`` reaches only ``DetectParams.dtype``, as in the
+JAX package: the XLA detector's pools run in bfloat16, the kernel pools
+(K1/K2, K4) in float32.
 """
 from __future__ import annotations
 
@@ -52,17 +54,6 @@ from ..ops.features import describe, detect, match, ransac, vote
 from ..ops.kernels import describe as kdesc
 from ..ops.kernels import doh as kdoh
 from . import registration as reg
-
-
-def check_supported(cfg: StitchConfig) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item that will port it,
-    for a registration configuration outside the ported slice."""
-    if cfg.registration in ("phase_incre", "phase"):
-        return      # the phase paths read no feature, enhance or vote knob
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"not ported: compute_dtype={cfg.compute_dtype!r} (a TPU-only "
-            f"knob on ROADMAP's do-not-port list)")
 
 
 def _enhance_mode(cfg: StitchConfig) -> str:
@@ -663,7 +654,6 @@ def register_sequence_features_incre(images, cfg: StitchConfig,
     Default engine: the pooled fast path (detect once per frame).
     ``strict_roi_detect``, or any enhancement, takes the reference's
     per-ROI detection (``_strict_attempt``)."""
-    check_supported(cfg)
     images = reg._as_images(images, device,
                             "register_sequence_features_incre")
     n, h, w = images.shape
@@ -748,7 +738,6 @@ def register_sequence_features(images, cfg: StitchConfig, device="cuda"
     enhanced first and take the XLA pool, as in the JAX package.  With
     ``auto_upright`` the pool is upright first, and pairs that fail with
     some valid match retry over an oriented pool of their frames."""
-    check_supported(cfg)
     images = reg._as_images(images, device, "register_sequence_features")
     n = images.shape[0]
     if n < 2:

@@ -27,6 +27,7 @@ import torch
 from ..config import StitchConfig, direction_increase, max_roi_scale
 from ..device import resolve_device
 from ..ops import phase_corr, roi
+from ..parallel import tp_fft
 
 
 @dataclasses.dataclass
@@ -284,6 +285,30 @@ def _phase_whole(images: torch.Tensor, hp: int, wp: int):
     return sx, sy, resp * np.float32(float(hp) * wp / (h * w))
 
 
+def _phase_whole_sharded(images, cfg: StitchConfig, mesh, hp: int, wp: int
+                         ) -> List[PairRegistration]:
+    """The over-budget route of ``register_sequence_phase_whole`` (JAX
+    registration.py:305-320): host float32 mean subtraction per frame,
+    then one tensor-parallel correlation a pair, its response renormalized
+    from padded area to image area."""
+    host = (images.cpu().numpy() if isinstance(images, torch.Tensor)
+            else np.asarray(images)).astype(np.float32)
+    n, h, w = host.shape
+    host = host - host.mean(axis=(1, 2), keepdims=True)
+    out: List[PairRegistration] = []
+    for k in range(n - 1):
+        sxk, syk, rk = tp_fft.phase_correlate_sharded(
+            host[k], host[k + 1], mesh, hp, wp)
+        rk *= float(hp) * wp / (h * w)
+        ok = bool(rk > cfg.phase_response_threshold)
+        out.append(PairRegistration(
+            ok=ok, offset=(int(np.round(-syk)), int(np.round(-sxk))),
+            offset_subpix=(float(-syk), float(-sxk)),
+            direction=cfg.direction if ok else 0,
+            scale=0, confidence=float(rk), attempts=1))
+    return out
+
+
 def register_sequence_phase_whole(images, cfg: StitchConfig, mesh=None,
                                   device="cuda") -> List[PairRegistration]:
     """Whole-image phase correlation of every adjacent pair.
@@ -299,20 +324,17 @@ def register_sequence_phase_whole(images, cfg: StitchConfig, mesh=None,
     With a ``mesh`` (JAX :305-320) the pairs run on one device, the mesh's
     first, as long as one pair's padded surfaces fit
     ``cfg.phase_hbm_budget`` (about 0.97 GB at 1936x2584, under the 2 GiB
-    default).  Beyond it, on two or more shards, the JAX package splits
-    each FFT over the mesh (parallel/tp_fft.py), which is on ROADMAP's
-    do-not-port list: that raises ``NotImplementedError``.
+    default).  Beyond it, on two or more shards, each pair's FFT is split
+    over the mesh (``parallel/tp_fft.phase_correlate_sharded``): the
+    frames are mean-subtracted on the host in float32, one sharded
+    correlation runs a pair, and no device holds a whole padded surface.
     """
     if mesh is not None:
         n, h, w = images.shape
-        working = 6 * phase_corr.optimal_dft_size(2 * h) * \
-            phase_corr.optimal_dft_size(2 * w) * 8
-        if mesh.size > 1 and working > cfg.phase_hbm_budget:
-            raise NotImplementedError(
-                f"register_sequence_phase_whole: {working} bytes of padded "
-                f"surfaces a pair exceed phase_hbm_budget "
-                f"{cfg.phase_hbm_budget}; the JAX package's tensor-parallel "
-                f"FFT (parallel/tp_fft.py) is on ROADMAP's do-not-port list")
+        hp = phase_corr.optimal_dft_size(2 * h)
+        wp = phase_corr.optimal_dft_size(2 * w)
+        if mesh.size > 1 and 6 * hp * wp * 8 > cfg.phase_hbm_budget:
+            return _phase_whole_sharded(images, cfg, mesh, hp, wp)
         device = mesh.devices[0]
     images = _as_images(images, device, "register_sequence_phase_whole")
     n, h, w = images.shape

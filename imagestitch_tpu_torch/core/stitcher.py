@@ -39,7 +39,7 @@ from ..device import resolve_device
 from ..io import codec, dataset
 from ..utils.records import SequenceReport, print_and_write
 from . import compose as compose_mod
-from . import feature_registration, registration
+from . import registration
 
 
 @dataclasses.dataclass
@@ -71,7 +71,6 @@ class Stitcher:
 
     def __init__(self, cfg: StitchConfig, checkpoint_dir: Optional[str] = None,
                  mesh=None, device="cuda"):
-        feature_registration.check_supported(cfg)
         if mesh is not None:
             device = mesh.devices[0]
         self.device = resolve_device(device, "Stitcher")

@@ -149,7 +149,6 @@ def register_sequence_pipelined(files: Sequence[str], cfg,
     ``device="cpu"``) and, with ``keep_host``, the host batch.
     """
     from ..core import feature_registration as freg
-    freg.check_supported(cfg)
     fast = cfg.features.auto_upright and not cfg.features.upright
     cfg_pool = cfg.replace(features=dataclasses.replace(
         cfg.features, upright=True)) if fast else cfg

@@ -14,9 +14,17 @@ the tests' oracle for the DoH kernels (``ops/kernels/doh.py``).
 
 Rounding follows XLA's CPU code: the Gaussian and Harris responses fuse
 their products into the sums (``fused=True``); the integral image sums in
-XLA's blocks of 16 (``_cumsum_xla``); the ORB levels come from jax's
-linear resize weights (``ops/fusion/pyramid.resize_weights``) applied in
-float64, within a few ulp of jax's, not bit for bit.
+XLA's blocks of 16 (``_cumsum_xla``); the ORB levels come from
+``ops/fusion/pyramid._resize_to``, jax's linear resize bit for bit.
+
+``DetectParams.dtype="bfloat16"`` (``StitchConfig.compute_dtype``) casts
+the frame to bfloat16 where the JAX detector does: the Gaussian and
+Harris responses then take bfloat16 taps and round every product and sum
+to bfloat16, the octave pool and the ORB levels are bfloat16, and the
+box-filter integral images still accumulate in float32; where XLA keeps
+float32 across a fusion (Harris's last difference, which the detectors
+widen), so does the port.  The scores are the JAX detector's bit for bit
+(tests/test_torch_bf16.py).
 
 Every top-k is a stable descending sort, ties to the lower index first as
 ``lax.top_k`` breaks them on the CPU (``top_k_stable``).
@@ -56,6 +64,14 @@ class DetectParams:
     edge_threshold: int = 31
     dtype: str = "float32"
     octave_topk_decay: int = 4     # per-octave candidate budget divisor
+
+
+def _dtype(params: DetectParams) -> torch.dtype:
+    """The detector's image dtype (``DetectParams.dtype``: "float32" or
+    "bfloat16"), where the JAX detector casts (JAX detect.py:354, :392,
+    :458)."""
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[
+        params.dtype]
 
 
 def _gauss_kernels(sigma: float, radius: int):
@@ -123,9 +139,20 @@ def _corr_cols(xp: torch.Tensor, k: np.ndarray, cols_out: int,
     return _correlate(xp, k, lambda x, t: x[..., :, t:t + cols_out], fused)
 
 
+def _bf16_values(k) -> np.ndarray:
+    """Tap values (or a scalar) rounded to bfloat16, as float32: JAX casts
+    its kernels to the image's dtype (``jnp.asarray(krow, x.dtype)``)."""
+    return torch.as_tensor(np.asarray(k, np.float32)).to(
+        torch.bfloat16).to(torch.float32).numpy()
+
+
 def _sep_conv2(x: torch.Tensor, krow: np.ndarray, kcol: np.ndarray,
                fused: bool = False) -> torch.Tensor:
-    """Separable 2-D correlation on (..., H, W), edge padding."""
+    """Separable 2-D correlation on (..., H, W), edge padding.  A
+    bfloat16 image takes bfloat16 taps, every product and sum rounded to
+    bfloat16 (torch's bfloat16 operations, each computed in float32)."""
+    if x.dtype == torch.bfloat16:
+        krow, kcol, fused = _bf16_values(krow), _bf16_values(kcol), False
     r = len(krow) // 2
     out = _corr_rows(_edge_pad(x, r, 0), krow, x.shape[-2], fused)
     c = len(kcol) // 2
@@ -144,6 +171,8 @@ def hessian_response(images: torch.Tensor, sigma: float,
     lxx = _sep_conv2(images, g, ddg, fused)
     lyy = _sep_conv2(images, ddg, g, fused)
     lxy = _sep_conv2(images, dg, dg, fused)
+    if images.dtype == torch.bfloat16:
+        return float(_bf16_values(sigma ** 4)) * (lxx * lyy - lxy * lxy)
     if fused:
         return (sigma ** 4) * _fma(lxx, lyy, -(lxy * lxy))
     return (sigma ** 4) * (lxx * lyy - lxy * lxy)
@@ -363,6 +392,13 @@ def harris_response(images: torch.Tensor) -> torch.Tensor:
     sxx = _sep_conv2(ix * ix, box, box, fused=True)
     syy = _sep_conv2(iy * iy, box, box, fused=True)
     sxy = _sep_conv2(ix * iy, box, box, fused=True)
+    if x.dtype == torch.bfloat16:
+        # every step rounds to bfloat16 but the last: the detectors take
+        # the response to float32, and XLA keeps the final difference in
+        # float32 (excess precision) rather than round it and widen it
+        tr = sxx + syy
+        return ((sxx * syy - sxy * sxy).to(torch.float32)
+                - (float(_bf16_values(0.04)) * tr * tr).to(torch.float32))
     det = _fma(sxx, syy, -(sxy * sxy))
     tr = sxx + syy
     return _fma(-(0.04 * tr), tr, det)
@@ -430,7 +466,7 @@ def detect_image_hessian(img: torch.Tensor, max_kp: int, params: DetectParams
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Multi-octave blob detection on ONE (H, W) image -> (rows, cols,
     scores) (max_kp,) in full-resolution coordinates."""
-    xo = img.to(torch.float32)
+    xo = img.to(_dtype(params))
     cand = []
     for o in range(params.n_octaves):
         if o > 0:
@@ -450,8 +486,9 @@ def _corner_levels(img: torch.Tensor, params: DetectParams):
     """[(level, level image, scale)] of the ORB pyramid: ``n_levels``
     levels spaced by ``scale_factor`` from ``first_level``, each the frame
     resized as ``jax.image.resize(x, (hs, ws), "linear")``, until the
-    shorter side is at most ``2 * edge_threshold + 8``."""
-    x = img.to(torch.float32)
+    shorter side is at most ``2 * edge_threshold + 8``.  A bfloat16
+    frame resizes with bfloat16 weights, its levels rounded to bfloat16."""
+    x = img.to(_dtype(params))
     h, w = x.shape
     out = []
     for lvl in range(params.first_level, params.n_levels):
@@ -459,8 +496,8 @@ def _corner_levels(img: torch.Tensor, params: DetectParams):
         hs, ws = int(round(h / s)), int(round(w / s))
         if min(hs, ws) <= 2 * params.edge_threshold + 8:
             break
-        xl = x if lvl == 0 else fusion_pyramid._resize_to(x, (hs, ws),
-                                                          "linear")
+        xl = x if lvl == 0 else fusion_pyramid._resize_to(
+            x, (hs, ws), "linear").to(x.dtype)
         out.append((lvl, xl, s))
     return out
 
@@ -544,7 +581,7 @@ def detect_describe_image(img: torch.Tensor, max_kp: int,
         if descs.shape[0] < max_kp:
             descs = F.pad(descs, (0, 0, 0, max_kp - descs.shape[0]))
         return rows[top_i], cols[top_i], scores[top_i], descs[top_i]
-    xo = img.to(torch.float32)
+    xo = img.to(_dtype(params))
     cand, octave_imgs = [], []
     for o in range(params.n_octaves):
         if o > 0:

@@ -13,7 +13,11 @@ a collective is a plain function over that list:
     back to every shard.  The order is fixed, so the card and the CPU sum
     alike;
   * ``all_gather`` concatenates the shards on shard 0's device (the
-    sharded outputs JAX reads back).
+    sharded outputs JAX reads back);
+  * ``all_to_all`` is JAX's tiled ``lax.all_to_all``: shard i's j-th
+    chunk along ``split_dim`` goes to shard j, which concatenates the
+    chunks it receives in shard order along ``concat_dim`` (the transpose
+    of the tensor-parallel FFT, ``parallel/tp_fft.py``).
 Each call adds to ``COLLECTIVES``: its calls and the bytes each payload
 holds.
 
@@ -37,7 +41,7 @@ COLLECTIVES: Dict[str, int] = {}
 
 def reset_collectives() -> None:
     COLLECTIVES.clear()
-    for op in ("psum", "ppermute", "all_gather"):
+    for op in ("psum", "ppermute", "all_gather", "all_to_all"):
         COLLECTIVES[op] = 0
         COLLECTIVES[f"{op}_bytes"] = 0
 
@@ -156,3 +160,20 @@ def all_gather(xs: Sequence[torch.Tensor], mesh: Mesh, dim: int = 0
     device."""
     _count("all_gather", xs)
     return torch.cat([x.to(mesh.devices[0]) for x in xs], dim=dim)
+
+
+def all_to_all(xs: Sequence[torch.Tensor], mesh: Mesh, split_dim: int,
+               concat_dim: int) -> List[torch.Tensor]:
+    """Tiled all-to-all: shard j receives chunk j (along ``split_dim``) of
+    every shard's tensor, concatenated in shard order along
+    ``concat_dim`` on its own device.  ``split_dim``'s size must divide by
+    the shard count."""
+    d = mesh.size
+    if xs[0].shape[split_dim] % d:
+        raise ValueError(f"all_to_all: size {xs[0].shape[split_dim]} of "
+                         f"dim {split_dim} does not split into {d} chunks")
+    _count("all_to_all", xs)
+    chunks = [x.chunk(d, dim=split_dim) for x in xs]
+    return [torch.cat([chunks[i][j].to(dev) for i in range(d)],
+                      dim=concat_dim)
+            for j, dev in enumerate(mesh.devices)]

@@ -174,7 +174,6 @@ def register_sequence_features_incre_sharded(images, cfg: StitchConfig,
     all-pairs sharded attempts, the exact host replay, and the oriented
     fallback of the pairs the upright pool leaves, on the mesh's first
     device.  ``images``: (N, H, W) uint8, numpy or a tensor."""
-    freg.check_supported(cfg)
     n, h, w = images.shape
     if n < 2:
         return []
@@ -200,7 +199,6 @@ def register_sequence_features_sharded(images, cfg: StitchConfig, mesh
     whole frames matched through the halo'd all-pairs step, and the
     oriented retry of failed pairs with some valid match over a pool of
     their frames on the mesh's first device (K5)."""
-    freg.check_supported(cfg)
     n, h, w = images.shape
     if n < 2:
         return []

@@ -18,18 +18,16 @@ def test_stitcher_without_device_needs_cuda(no_cuda):
         Stitcher(StitchConfig())
     # a mesh: the Stitcher's device is the mesh's first, so a mesh of
     # cards needs the card, and a mesh of CPU shards runs; make_mesh with
-    # no devices takes cards, and there are none.  An unported
-    # configuration still names its ROADMAP list first; a ported option
-    # needs the card like any other
+    # no devices takes cards, and there are none.  A ported option, the
+    # bfloat16 detector among them, needs the card like any other
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Stitcher(StitchConfig(), mesh=Mesh(["cuda:0", "cuda:0"]))
     assert Stitcher(StitchConfig(), mesh=make_mesh(
         devices=["cpu"] * 2)).device.type == "cpu"
     with pytest.raises(RuntimeError, match="0 CUDA"):
         make_mesh(1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Stitcher(StitchConfig(compute_dtype="bfloat16"))
-    for ported in (dict(fuse_method="average"), dict(use_global_solver=True)):
+    for ported in (dict(fuse_method="average"), dict(use_global_solver=True),
+                   dict(compute_dtype="bfloat16")):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Stitcher(StitchConfig(**ported))
     assert Stitcher(StitchConfig(), device="cpu").device.type == "cpu"

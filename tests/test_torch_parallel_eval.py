@@ -178,19 +178,25 @@ def test_two_process_gloo_runtime(tmp_path):
 
 
 def test_phase_whole_over_budget_raises_naming_tp_fft():
-    """Over ``phase_hbm_budget`` a mesh of two or more shards would need
-    the JAX package's tensor-parallel FFT, which is not ported; within it,
-    or on one shard, the whole-image path runs."""
+    """Over ``phase_hbm_budget`` a mesh of two or more shards takes the
+    tensor-parallel FFT (parallel/tp_fft.py; it once raised, naming it):
+    the one-device records, sub-pixel within 5e-3 px and confidence within
+    1e-3.  Within it, or on one shard, the whole-image path runs on the
+    mesh's first device."""
     pos = synthetic.serpentine_positions(2, 1, (40.37, 0.21))
     frames, _ = synthetic.sequence(0, (96, 128), pos)
     cfg = StitchConfig(registration="phase", phase_hbm_budget=1)
-    with pytest.raises(NotImplementedError, match="tp_fft"):
-        treg.register_sequence_phase_whole(
-            frames, cfg, mesh=make_mesh(devices=["cpu"] * 2))
+    single = treg.register_sequence_phase_whole(frames, cfg, device="cpu")
+    sharded = treg.register_sequence_phase_whole(
+        frames, cfg, mesh=make_mesh(devices=["cpu"] * 2))
+    for s, r in zip(sharded, single):
+        assert (s.ok, s.offset, s.direction) == (r.ok, r.offset, r.direction)
+        np.testing.assert_allclose(s.offset_subpix, r.offset_subpix,
+                                   atol=5e-3)
+        assert abs(s.confidence - r.confidence) < 1e-3
     one = treg.register_sequence_phase_whole(
         frames, cfg, mesh=make_mesh(devices=["cpu"]))
-    assert one == treg.register_sequence_phase_whole(frames, cfg,
-                                                     device="cpu")
+    assert one == single
     assert one[0].ok and abs(one[0].offset[0] - 40) <= 1
 
 

@@ -1,15 +1,15 @@
-"""Registration configurations outside the ported slice raise
-NotImplementedError naming the ROADMAP list that holds them (the
-Stitcher-level options are in test_torch_slice.py); the ones the port
-gained since construct a ``Stitcher`` and run a 3-frame CPU sequence like
-the JAX package's (records and panorama equal, pools routed as on a
-TPU)."""
+"""Registration configurations that once raised NotImplementedError,
+naming the ROADMAP list that held them (the Stitcher-level options are in
+test_torch_slice.py): each now constructs a ``Stitcher`` and runs a
+3-frame CPU sequence like the JAX package's (records and panorama equal,
+pools routed as on a TPU)."""
 import pytest
 
 from imagestitch_tpu import EnhanceConfig as JEnhanceConfig
 from imagestitch_tpu import FeatureConfig as JFeatureConfig
 from imagestitch_tpu import StitchConfig as JStitchConfig
 from imagestitch_tpu_torch import StitchConfig, Stitcher
+from imagestitch_tpu_torch.core import feature_registration as freg
 from imagestitch_tpu_torch.utils import synthetic
 from test_torch_jax_chain import (assert_segments_equal,
                                   route_pools_as_on_tpu, stitch_both,
@@ -26,9 +26,12 @@ def _two_threads():
     dict(compute_dtype="bfloat16"),
 ])
 def test_registration_outside_the_slice_raises(change):
+    """Nothing is left outside the slice: the last option that raised,
+    ``compute_dtype="bfloat16"``, builds a Stitcher whose detector takes
+    it (records against the JAX package's: tests/test_torch_bf16.py)."""
     cfg = StitchConfig(color_mode=False).replace(**change)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Stitcher(cfg, device="cpu")
+    Stitcher(cfg, device="cpu")
+    assert freg._detect_params(cfg).dtype == "bfloat16"
 
 
 @pytest.fixture(scope="module")
