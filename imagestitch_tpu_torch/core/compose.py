@@ -25,6 +25,7 @@ from ..device import resolve_device
 from ..ops.fusion import blend
 from ..ops.fusion import pyramid as fusion_pyramid
 from ..ops.fusion import seam as fusion_seam
+from ..utils import profiling
 
 #: the modes the JAX composer pads to shape buckets, and the host float64
 #: composers run (JAX compose.py:373-374)
@@ -155,27 +156,33 @@ def _run_steps(steps, images, canvas_shape, pairwise, cfg: StitchConfig,
         raise ValueError(f"fuse_method={cfg.fuse_method!r} composes gray "
                          f"frames only (the reference's), got color")
     if not isinstance(images, torch.Tensor):
-        images = torch.as_tensor(images).to(resolve_device(device,
-                                                           "compose"))
+        with profiling.span("compose.upload"):
+            images = torch.as_tensor(images).to(resolve_device(device,
+                                                               "compose"))
     color = images.dim() == 4
     h, w = images.shape[1:3]
-    canvas = torch.full(tuple(canvas_shape) + tuple(images.shape[3:]), -1,
-                        dtype=torch.int16, device=images.device)
-    for kind, i, (r, c), rect, size in steps:
-        img = images[i].to(torch.int16)
-        if kind == "paste":
+    with profiling.span("compose.fuse"):
+        canvas = torch.full(tuple(canvas_shape) + tuple(images.shape[3:]),
+                            -1, dtype=torch.int16, device=images.device)
+        for kind, i, (r, c), rect, size in steps:
+            img = images[i].to(torch.int16)
+            if kind == "paste":
+                canvas[r:r + h, c:c + w] = img
+                continue
+            (rr, rc), (rh, rw) = rect, size
+            view = canvas[rr:rr + rh, rc:rc + rw]
+            roi_a = view.to(torch.int32)               # before the paste
             canvas[r:r + h, c:c + w] = img
-            continue
-        (rr, rc), (rh, rw) = rect, size
-        view = canvas[rr:rr + rh, rc:rc + rw]
-        roi_a = view.to(torch.int32)               # before the paste
-        canvas[r:r + h, c:c + w] = img
-        roi_b = view.to(torch.int32)               # after the paste
-        drow, dcol = pairwise[i]
-        view.copy_(_fuse_dispatch(roi_a, roi_b, drow, dcol, cfg.fuse_method,
-                                  color))
-    pano = canvas.clamp_(min=0).to(torch.uint8)   # -1 sentinel -> 0
-    return pano if return_device else pano.cpu().numpy()
+            roi_b = view.to(torch.int32)               # after the paste
+            drow, dcol = pairwise[i]
+            view.copy_(_fuse_dispatch(roi_a, roi_b, drow, dcol,
+                                      cfg.fuse_method, color))
+        pano = canvas.clamp_(min=0).to(torch.uint8)   # -1 sentinel -> 0
+    if return_device:
+        return pano
+    # the readback also waits for the fuse work queued above
+    with profiling.span("compose.readback"):
+        return pano.cpu().numpy()
 
 
 def compose(images, offsets: Sequence[Tuple[int, int]], cfg: StitchConfig,

@@ -53,6 +53,7 @@ from ..ops import enhance, roi
 from ..ops.features import describe, detect, match, ransac, vote
 from ..ops.kernels import describe as kdesc
 from ..ops.kernels import doh as kdoh
+from ..utils import profiling
 from . import registration as reg
 
 
@@ -552,6 +553,7 @@ class _PooledCache:
                 cfg.features.search_ratio, _effective_max_distance(cfg),
                 cfg.use_kernels, cfg.offset_calculate).cpu().numpy()
             self.dispatches += 1
+            profiling.count("REGISTER_DISPATCHES")
             self.attempts_matched += len(idx_p) * len(configs)
             for (d, s), pk in zip(configs, results):
                 dstore = self._store.setdefault((d, s), {})
@@ -667,17 +669,23 @@ def register_sequence_features_incre(images, cfg: StitchConfig,
         # already integer strip offsets; confidence = floor-zeroed votes
         extract = lambda res: (float(res["drow"]), float(res["dcol"]),
                                float(res["nz"]))
-        return reg._replay_incremental(n - 1, cfg, cache, accept, extract,
-                                       (h, w), offsets_are_full=False)
+        # the replay detects inside each attempt: all of it is the match
+        with profiling.span("register.match"):
+            return reg._replay_incremental(n - 1, cfg, cache, accept,
+                                           extract, (h, w),
+                                           offsets_are_full=False)
     # upright-first (auto_upright): the upright pool registers translation
     # -only stages; the pairs it cannot register retry with orientation
     fast = cfg.features.auto_upright and not cfg.features.upright
     cfg_pool = cfg.replace(features=dataclasses.replace(
         cfg.features, upright=True)) if fast else cfg
-    recs = replay_from_pool(_precompute_pool(images, cfg_pool), n, (h, w),
-                            cfg_pool)
+    with profiling.span("register.pool"):
+        pool = _precompute_pool(images, cfg_pool)
+    with profiling.span("register.match"):
+        recs = replay_from_pool(pool, n, (h, w), cfg_pool)
     if fast and any(not r.ok for r in recs):
-        recs = _oriented_fallback_incre(images, recs, cfg, (h, w))
+        with profiling.span("register.fallback"):
+            recs = _oriented_fallback_incre(images, recs, cfg, (h, w))
     return recs
 
 
@@ -712,6 +720,7 @@ def _match_vote_adjacent(pool, ia: np.ndarray, cfg: StitchConfig,
         dr, dc, nv, av = (t.cpu().numpy() for t in _vote(
             cfg.offset_calculate, rows[sub], cols[sub], rows[sub + 1],
             cols[sub + 1], ti, ok, draws[s:s + len(sub)]))
+        profiling.count("REGISTER_DISPATCHES")
         for k in range(len(sub)):
             okk = bool(nv[k] >= cfg.offset_evaluate)
             out.append(reg.PairRegistration(
@@ -760,18 +769,21 @@ def register_sequence_features(images, cfg: StitchConfig, device="cuda"
         ims, dparams, sp, max_pool=max_kp,
         fused_select=cfg.features.fused_select, use_kernels=cfg.use_kernels,
         use_pallas=cfg.use_pallas and emode == "none")
-    out = _match_vote_adjacent(pool_of(images, sparams_fast), np.arange(n - 1),
-                               cfg, metric)
+    with profiling.span("register.pool"):
+        pool = pool_of(images, sparams_fast)
+    with profiling.span("register.match"):
+        out = _match_vote_adjacent(pool, np.arange(n - 1), cfg, metric)
     failed = [k for k, r in enumerate(out)
               if not r.ok and r.confidence > 0.0]
     if fast and failed:
-        frames = sorted({f for k in failed for f in (k, k + 1)})
-        fmap = {f: i for i, f in enumerate(frames)}
-        mini = pool_of(images[torch.as_tensor(frames, dtype=torch.long,
-                                              device=images.device)], sparams)
-        sub = _match_vote_adjacent(mini,
-                                   np.asarray([fmap[k] for k in failed]),
-                                   cfg, metric)
+        with profiling.span("register.fallback"):
+            frames = sorted({f for k in failed for f in (k, k + 1)})
+            fmap = {f: i for i, f in enumerate(frames)}
+            mini = pool_of(images[torch.as_tensor(
+                frames, dtype=torch.long, device=images.device)], sparams)
+            sub = _match_vote_adjacent(mini,
+                                       np.asarray([fmap[k] for k in failed]),
+                                       cfg, metric)
         for k, r in zip(failed, sub):
             out[k] = r
     return out

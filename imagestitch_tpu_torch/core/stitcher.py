@@ -37,6 +37,7 @@ import torch
 from ..config import StitchConfig
 from ..device import resolve_device
 from ..io import codec, dataset
+from ..utils import profiling
 from ..utils.records import SequenceReport, print_and_write
 from . import compose as compose_mod
 from . import registration
@@ -145,55 +146,65 @@ class Stitcher:
         StitchResult per stitchable segment; a lone image is returned as-is
         (reference Stitcher.py:119-125).  ``recs``: precomputed records (the
         pipelined ingest registers while it decodes)."""
-        t0 = time.time()
-        ckpt_path = None
-        if self.checkpoint_dir is not None:
-            from . import checkpoint
-            key = hashlib.sha1("\n".join(batch.files).encode()).hexdigest()[:16]
-            ckpt_path = os.path.join(self.checkpoint_dir, f"reg_{key}.json")
+        profiling.count("FRAMES", batch.num_images)
+        with profiling.span("register") as t_reg:
+            ckpt_path = None
+            if self.checkpoint_dir is not None:
+                from . import checkpoint
+                key = hashlib.sha1(
+                    "\n".join(batch.files).encode()).hexdigest()[:16]
+                ckpt_path = os.path.join(self.checkpoint_dir,
+                                         f"reg_{key}.json")
+                if recs is None:
+                    recs = checkpoint.load_registration(ckpt_path,
+                                                        batch.files)
+            # gray crosses to the device once, where it registers and, in
+            # gray mode, composes; color mode composes batch.color
+            with profiling.span("register.upload"):
+                gray = batch.gray if self.cfg.color_mode else \
+                    self._to_device(batch.gray)
+                gray_dev = self._to_device(gray) if recs is None else None
             if recs is None:
-                recs = checkpoint.load_registration(ckpt_path, batch.files)
-        # gray crosses to the device once, where it registers and, in gray
-        # mode, composes; color mode composes batch.color
-        gray = batch.gray if self.cfg.color_mode else self._to_device(
-            batch.gray)
-        if recs is None:
-            recs = self.register(self._to_device(gray))
-            if ckpt_path is not None:
-                checkpoint.save_registration(ckpt_path, batch.files, recs)
-        t_reg = time.time() - t0
+                recs = self.register(gray_dev)
+                # color mode's copy of the gray frames is not held through
+                # composition
+                del gray_dev
+                if ckpt_path is not None:
+                    checkpoint.save_registration(ckpt_path, batch.files,
+                                                 recs)
         compose_src = batch.color if self.cfg.color_mode else gray
         n = batch.num_images
         results: List[StitchResult] = []
-        t0 = time.time()
-        start = 0
-        while start < n:
-            end = start
-            seg_offsets: List[Tuple[int, int]] = []
-            while end < n - 1 and recs[end].ok:
-                seg_offsets.append(recs[end].offset)
-                end += 1
-            if end == start:
-                img = _host(compose_src[start])
-            elif self.cfg.use_global_solver:
-                img = self._solve_and_compose(batch, recs, gray,
-                                              compose_src[start:end + 1],
-                                              start, end)
-            elif self._sharded():
-                from ..parallel import compose_sharded
-                img = compose_sharded.compose_sharded(
-                    compose_src[start:end + 1], seg_offsets, self.cfg,
-                    self.mesh)
-            else:
-                img = self._compose_segment(batch, compose_src[start:end + 1],
-                                            seg_offsets, start, end)
-            results.append(StitchResult(image=img,
-                                        file_range=(start, end + 1),
-                                        offsets=seg_offsets))
-            start = end + 1
-        t_fuse = time.time() - t0
-        report = SequenceReport.from_records(recs, t_register=t_reg,
-                                             t_compose=t_fuse)
+        with profiling.span("compose") as t_fuse:
+            start = 0
+            while start < n:
+                end = start
+                seg_offsets: List[Tuple[int, int]] = []
+                while end < n - 1 and recs[end].ok:
+                    seg_offsets.append(recs[end].offset)
+                    end += 1
+                if end == start:
+                    img = _host(compose_src[start])
+                elif self.cfg.use_global_solver:
+                    img = self._solve_and_compose(batch, recs, gray,
+                                                  compose_src[start:end + 1],
+                                                  start, end)
+                elif self._sharded():
+                    from ..parallel import compose_sharded
+                    img = compose_sharded.compose_sharded(
+                        compose_src[start:end + 1], seg_offsets, self.cfg,
+                        self.mesh)
+                else:
+                    img = self._compose_segment(
+                        batch, compose_src[start:end + 1], seg_offsets,
+                        start, end)
+                results.append(StitchResult(image=img,
+                                            file_range=(start, end + 1),
+                                            offsets=seg_offsets))
+                start = end + 1
+        report = SequenceReport.from_records(recs,
+                                             t_register=t_reg.seconds,
+                                             t_compose=t_fuse.seconds)
         for r in results:
             r.report = report
         return results
@@ -280,8 +291,9 @@ class Stitcher:
                         host[start:end + 1], seg_offsets, cfg,
                         frames_dev=self._to_device(seg_images),
                         device=self.device)
-        return compose_mod.compose(self._to_device(seg_images), seg_offsets,
-                                   cfg)
+        with profiling.span("compose.upload"):
+            frames = self._to_device(seg_images)
+        return compose_mod.compose(frames, seg_offsets, cfg)
 
     def stitch_files(self, files: Sequence[str]) -> List[StitchResult]:
         """Stitch a file sequence with pipelined ingest: decode of chunk
@@ -321,7 +333,7 @@ class Stitcher:
         segment.  Returns the written files."""
         written: List[str] = []
         for i in range(start_num, file_num + 1):
-            t0 = time.time()
+            t0 = time.perf_counter()
             files = dataset.list_project_images(project_address, i,
                                                 file_extension)
             if not files:
@@ -341,5 +353,5 @@ class Stitcher:
                 written.append(out)
             print_and_write(self.cfg,
                             f"Time consuming for {project_address}/{i}: "
-                            f"{time.time() - t0:.3f}s")
+                            f"{time.perf_counter() - t0:.3f}s")
         return written

@@ -16,6 +16,8 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from ..utils import profiling
+
 
 def list_project_images(project_address: str, sub_project: int,
                         file_extension: str = "jpg") -> List[str]:
@@ -74,19 +76,25 @@ def load_batch(files: Sequence[str], color_mode: bool,
     default the runtime's thread-pool decoder (io/native_loader.py)."""
     if not files:
         raise ValueError("empty file list")
-    if loader is None:
-        from .native_loader import NativeLoader
-        loader = NativeLoader()
-    decoded = loader.read_all(files, color_mode)
+    # counters only: the decode worker thread runs this, where the profiler
+    # keeps no annotation
+    with profiling.span("ingest.decode", annotate=False):
+        if loader is None:
+            from .native_loader import NativeLoader
+            loader = NativeLoader()
+        decoded = loader.read_all(files, color_mode)
     grays = decoded
     if color_mode:
-        with ThreadPoolExecutor(min(len(files), os.cpu_count() or 1)) as pool:
-            grays = list(pool.map(bgr_to_gray, decoded))
-    shape0 = grays[0].shape
-    for f, g in zip(files, grays):
-        if g.shape != shape0:
-            raise ValueError(f"inconsistent image shapes in sequence: "
-                             f"{files[0]}={shape0} vs {f}={g.shape}")
-    return ImageBatch(gray=np.stack(grays),
-                      color=np.stack(decoded) if color_mode else None,
-                      files=list(files))
+        with profiling.span("ingest.gray", annotate=False):
+            with ThreadPoolExecutor(min(len(files),
+                                        os.cpu_count() or 1)) as pool:
+                grays = list(pool.map(bgr_to_gray, decoded))
+    with profiling.span("ingest.decode", annotate=False):
+        shape0 = grays[0].shape
+        for f, g in zip(files, grays):
+            if g.shape != shape0:
+                raise ValueError(f"inconsistent image shapes in sequence: "
+                                 f"{files[0]}={shape0} vs {f}={g.shape}")
+        return ImageBatch(gray=np.stack(grays),
+                          color=np.stack(decoded) if color_mode else None,
+                          files=list(files))

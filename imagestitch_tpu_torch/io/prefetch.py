@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..utils import profiling
 from . import dataset
 
 
@@ -43,7 +44,8 @@ class ChunkPrefetcher:
         with ThreadPoolExecutor(max_workers=1) as pool:
             fut = pool.submit(load, *spans[0])
             for k in range(len(spans)):
-                batch = fut.result()
+                with profiling.span("ingest.wait"):
+                    batch = fut.result()
                 if k + 1 < len(spans):
                     fut = pool.submit(load, *spans[k + 1])
                 yield batch
@@ -66,19 +68,20 @@ class Uploader:
             self._stream = torch.cuda.Stream(self.device)
 
     def __call__(self, host: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(host))
-        if not self._cuda:
-            return t.to(self.device)
-        pinned = t.pin_memory()
-        self._pinned.append(pinned)
-        main = torch.cuda.current_stream(self.device)
-        with torch.cuda.stream(self._stream):
-            dev = pinned.to(self.device, non_blocking=True)
-            copied = torch.cuda.Event()
-            copied.record(self._stream)
-        main.wait_event(copied)
-        dev.record_stream(main)
-        return dev
+        with profiling.span("ingest.upload"):
+            t = torch.from_numpy(np.ascontiguousarray(host))
+            if not self._cuda:
+                return t.to(self.device)
+            pinned = t.pin_memory()
+            self._pinned.append(pinned)
+            main = torch.cuda.current_stream(self.device)
+            with torch.cuda.stream(self._stream):
+                dev = pinned.to(self.device, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record(self._stream)
+            main.wait_event(copied)
+            dev.record_stream(main)
+            return dev
 
 
 def _cat(chunks):
@@ -107,13 +110,16 @@ def pooled_features_pipelined(files: Sequence[str], cfg,
     for batch in ChunkPrefetcher(files, color_mode=False,
                                  chunk_frames=chunk_frames):
         dev = upload(batch.gray)
-        pools.append(freg._precompute_pool(dev, cfg))
+        with profiling.span("register.pool"):
+            pools.append(freg._precompute_pool(dev, cfg))
         dev_chunks.append(dev)
         if keep_host:
             host_chunks.append(batch.gray)
-    pool = tuple(_cat([p[i] for p in pools]) for i in range(len(pools[0])))
-    return (pool, _cat(dev_chunks),
-            _cat(host_chunks) if keep_host else None)
+    with profiling.span("ingest.concat"):
+        pool = tuple(_cat([p[i] for p in pools])
+                     for i in range(len(pools[0])))
+        return (pool, _cat(dev_chunks),
+                _cat(host_chunks) if keep_host else None)
 
 
 def load_batch_pipelined(files: Sequence[str], color_mode: bool,
@@ -132,9 +138,11 @@ def load_batch_pipelined(files: Sequence[str], color_mode: bool,
         if color_mode:
             color_chunks.append(batch.color)
         all_files.extend(batch.files)
-    return dataset.ImageBatch(
-        gray=_cat(gray_chunks),
-        color=_cat(color_chunks) if color_mode else None, files=all_files)
+    with profiling.span("ingest.concat"):
+        return dataset.ImageBatch(
+            gray=_cat(gray_chunks),
+            color=_cat(color_chunks) if color_mode else None,
+            files=all_files)
 
 
 def register_sequence_pipelined(files: Sequence[str], cfg,
@@ -156,7 +164,9 @@ def register_sequence_pipelined(files: Sequence[str], cfg,
         files, cfg_pool, chunk_frames, keep_host,
         device=resolve_device(device, "register_sequence_pipelined"))
     n, h, w = gray_dev.shape
-    recs = freg.replay_from_pool(pool, n, (h, w), cfg_pool)
+    with profiling.span("register.match"):
+        recs = freg.replay_from_pool(pool, n, (h, w), cfg_pool)
     if fast and any(not r.ok for r in recs):
-        recs = freg._oriented_fallback_incre(gray_dev, recs, cfg, (h, w))
+        with profiling.span("register.fallback"):
+            recs = freg._oriented_fallback_incre(gray_dev, recs, cfg, (h, w))
     return recs, gray_dev, gray_host

@@ -4,6 +4,15 @@ Port of ``imagestitch_tpu/utils/profiling.py``: fenced phase timers (a
 fence waits until the card has finished the work behind a value, so
 asynchronous launches cannot make a phase look short), a frames/s meter,
 and a ``torch.profiler`` trace context that writes a Chrome trace.
+
+Beside them, the program's own spans and counters: ``span(name)`` adds
+the host time of its body to the module-level counter named after it
+(``"ingest.decode"`` -> ``INGEST_DECODE_NS``) and, only while a
+``torch.profiler`` session is on, marks the body as
+``imagestitch.<name>`` on the trace's timeline.  A span never waits for
+the card: device work it queues is waited on by whichever later span
+reads a result back.  The counters only grow; read them before and after
+a block and take the difference.
 """
 from __future__ import annotations
 
@@ -11,11 +20,95 @@ import contextlib
 import json
 import os
 import tempfile
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import torch
+
+#: prefix of the program's annotations in a torch.profiler trace
+PREFIX = "imagestitch."
+
+#: frames that entered ``Stitcher.stitch_batch``
+FRAMES = 0
+#: match-and-vote dispatches of the feature registrars, each ending in one
+#: readback (``_PooledCache.get``, ``_match_vote_adjacent``'s chunks)
+REGISTER_DISPATCHES = 0
+# host nanoseconds of each span, named after it (see ``span``); the ingest
+# decode and gray run on the decode worker thread, the rest on the caller's
+INGEST_DECODE_NS = 0
+INGEST_GRAY_NS = 0
+INGEST_WAIT_NS = 0
+INGEST_UPLOAD_NS = 0
+INGEST_CONCAT_NS = 0
+REGISTER_NS = 0
+REGISTER_UPLOAD_NS = 0
+REGISTER_POOL_NS = 0
+REGISTER_MATCH_NS = 0
+REGISTER_FALLBACK_NS = 0
+COMPOSE_NS = 0
+COMPOSE_UPLOAD_NS = 0
+COMPOSE_FUSE_NS = 0
+COMPOSE_READBACK_NS = 0
+
+_LOCK = threading.Lock()
+_GLOBALS = globals()
+_COUNTER_OF: Dict[str, str] = {}          # span name -> its counter's name
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+def count(counter: str, n: int = 1) -> None:
+    """Add ``n`` to the module-level counter ``counter`` (any thread)."""
+    with _LOCK:
+        _GLOBALS[counter] += n
+
+
+def _counter_of(name: str) -> str:
+    counter = _COUNTER_OF.get(name)
+    if counter is None:
+        counter = name.upper().replace(".", "_") + "_NS"
+        if not isinstance(_GLOBALS.get(counter), int):
+            raise ValueError(f"span {name!r}: no counter {counter}")
+        _COUNTER_OF[name] = counter
+    return counter
+
+
+class span:
+    """Host time of the body, added to the counter named after ``name``
+    (``"register.pool"`` -> ``REGISTER_POOL_NS``); ``ns`` holds the body's
+    time once it has ended.  While a profiler session is on and
+    ``annotate`` holds, the body is also a ``record_function`` named
+    ``imagestitch.<name>``.  Pass ``annotate=False`` on a worker thread:
+    the profiler keeps no annotation entered there."""
+
+    __slots__ = ("_name", "_counter", "_annotate", "_rf", "_t0", "ns")
+
+    def __init__(self, name: str, annotate: bool = True):
+        self._name, self._counter = name, _counter_of(name)
+        self._annotate = annotate
+        self._rf = None
+        self.ns = 0
+
+    def __enter__(self) -> "span":
+        if self._annotate and _profiler_enabled():
+            self._rf = torch.profiler.record_function(PREFIX + self._name)
+            self._rf.__enter__()
+        self._t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.ns = time.perf_counter_ns() - self._t0
+        with _LOCK:
+            _GLOBALS[self._counter] += self.ns
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+            self._rf = None
+        return False
+
+    @property
+    def seconds(self) -> float:
+        return self.ns * 1e-9
 
 
 def _cuda_devices(value, out: set) -> set:
