@@ -182,7 +182,40 @@ def _run_steps(steps, images, canvas_shape, pairwise, cfg: StitchConfig,
         return pano
     # the readback also waits for the fuse work queued above
     with profiling.span("compose.readback"):
+        return _readback(pano)
+
+
+#: addresses of the page-locked blocks panoramas were read back into: a
+#: block at one of them is one the host allocator handed out again
+_PINNED_BLOCKS: set = set()
+
+
+def _readback(pano: torch.Tensor) -> np.ndarray:
+    """``pano`` as a host array that the caller owns.  A card's panorama
+    is copied by DMA into a page-locked block of torch's caching host
+    allocator, at the link's rate, and the array's base holds the block:
+    the block goes back to the allocator's cache, still locked, when the
+    last array or view of it dies, and the next panorama of its size
+    lands there without locking or faulting its pages again.  Where the
+    allocator cannot lock the memory, and off the card, the copy goes
+    into pageable memory (``pano.cpu().numpy()``).  Counts
+    ``COMPOSE_READBACKS``, ``COMPOSE_READBACK_REUSED`` and
+    ``COMPOSE_READBACK_PAGEABLE`` for a card's panorama."""
+    if pano.device.type != "cuda":
         return pano.cpu().numpy()
+    profiling.count("COMPOSE_READBACKS")
+    try:
+        host = torch.empty(pano.shape, dtype=pano.dtype, pin_memory=True)
+    except RuntimeError:
+        profiling.count("COMPOSE_READBACK_PAGEABLE")
+        return pano.cpu().numpy()
+    if host.data_ptr() in _PINNED_BLOCKS:
+        profiling.count("COMPOSE_READBACK_REUSED")
+    else:
+        _PINNED_BLOCKS.add(host.data_ptr())
+    host.copy_(pano, non_blocking=True)
+    torch.cuda.current_stream(pano.device).synchronize()
+    return host.numpy()
 
 
 def compose(images, offsets: Sequence[Tuple[int, int]], cfg: StitchConfig,
@@ -194,7 +227,13 @@ def compose(images, offsets: Sequence[Tuple[int, int]], cfg: StitchConfig,
     caller passes ``device="cpu"`` (without CUDA the card raises).
     ``offsets``: N-1 pairwise (drow, dcol) ints.  Returns the host numpy
     panorama, or with ``return_device`` the uint8 tensor where it was
-    composed.  Parity
+    composed.  A panorama composed on the card comes back in page-locked
+    host memory (``_readback``), which the returned array owns: torch's
+    host allocator rounds each block up to a power of two (a 1.13 GB
+    panorama locks 2 GiB) and keeps it locked, cached for the next
+    panorama of its size, once the array and its views are gone.  So as
+    many blocks of a size stay locked, for the life of the process, as
+    panoramas of that size were ever alive at once.  Parity
     with Stitcher.py:440-486: image i fuses only against the occupancy rect
     of image i-1, the fuse rect sees the canvas before and after pasting
     image i, and fusion uses the pairwise offset.  Multiband and the
@@ -213,7 +252,9 @@ def compose_from_positions(images, positions: np.ndarray, cfg: StitchConfig,
     """Compose from ABSOLUTE tile positions (the global solver's output),
     rounded half to even: every tile fuses against the previous tile's true
     extent, the fusion ramp following the consecutive position delta.  A
-    tensor composes where it lies, numpy frames on ``device``."""
+    tensor composes where it lies, numpy frames on ``device``.  A card's
+    panorama comes back in page-locked host memory, locked and cached as
+    ``compose`` says."""
     h, w = images.shape[1:3]
     shape, steps, deltas = plan_compose_positions(positions, (h, w), cfg)
     return _run_steps(steps, images, shape, deltas, cfg, return_device,

@@ -35,6 +35,12 @@ FRAMES = 0
 #: match-and-vote dispatches of the feature registrars, each ending in one
 #: readback (``_PooledCache.get``, ``_match_vote_adjacent``'s chunks)
 REGISTER_DISPATCHES = 0
+#: panoramas read back from a card (``core/compose._readback``); of them,
+#: those that landed in a page-locked block made for an earlier one, and
+#: those that went to pageable memory because none could be locked
+COMPOSE_READBACKS = 0
+COMPOSE_READBACK_REUSED = 0
+COMPOSE_READBACK_PAGEABLE = 0
 # host nanoseconds of each span, named after it (see ``span``); the ingest
 # decode and gray run on the decode worker thread, the rest on the caller's
 INGEST_DECODE_NS = 0

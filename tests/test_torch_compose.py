@@ -3,7 +3,9 @@ weights) against the JAX compose (bucketed lax.scan steps, dynamic-rect
 weights) on gray frames, plus the host placement against the JAX one
 (the other fusion modes: test_torch_fusion_modes.py).
 Panoramas are bit-equal: the port rounds the blend as the fused
-multiply-add that XLA emits in the JAX composer (ops/fusion/blend.py)."""
+multiply-add that XLA emits in the JAX composer (ops/fusion/blend.py).
+Last, the panorama's readback: unchanged on the CPU, and on the card into
+page-locked host memory that the caller owns."""
 import numpy as np
 import pytest
 import torch
@@ -14,6 +16,7 @@ from imagestitch_tpu_torch import StitchConfig
 from imagestitch_tpu_torch.core import compose as tcompose
 from imagestitch_tpu_torch.ops.fusion import blend as tblend
 from imagestitch_tpu_torch.ops.fusion import weights as tweights
+from imagestitch_tpu_torch.utils import profiling
 
 H, W = 120, 160
 CASES = {
@@ -86,3 +89,114 @@ def test_unsupported_fusion_raises(monkeypatch):
         with pytest.raises(ValueError, match="gray frames only"):
             tcompose.compose(np.zeros((2, H, W, 3), np.uint8), [(50, 0)],
                              StitchConfig(fuse_method=method))
+
+
+#: the readback's counters (utils/profiling.py): card panoramas read back,
+#: of them those in a page-locked block already made, and the pageable ones
+READBACK_COUNTERS = ("COMPOSE_READBACKS", "COMPOSE_READBACK_REUSED",
+                     "COMPOSE_READBACK_PAGEABLE")
+
+
+def _readback_counters():
+    return {c: getattr(profiling, c) for c in READBACK_COUNTERS}
+
+
+def _color_frames(seed, n):
+    return np.random.default_rng(seed).integers(0, 256, (n, H, W, 3),
+                                                dtype=np.uint8)
+
+
+def _positions(offsets):
+    """The absolute positions the pairwise ``offsets`` chain to."""
+    return np.cumsum([(0, 0)] + list(offsets), axis=0).astype(np.float64)
+
+
+def _compose(fn, frames, offsets, cfg, **kw):
+    """``compose`` by pairwise offsets, or ``compose_from_positions`` at
+    the positions the offsets chain to."""
+    if fn == "compose":
+        return tcompose.compose(frames, offsets, cfg, **kw)
+    return tcompose.compose_from_positions(frames, _positions(offsets), cfg,
+                                           **kw)
+
+
+@pytest.mark.parametrize("fn", ["compose", "compose_from_positions"])
+def test_cpu_readback_unchanged(fn):
+    """On the CPU the panorama comes back as before: the canvas the steps
+    built, as a C-contiguous host uint8 array of its shape, bit-equal to
+    the JAX composer's; no card readback is counted."""
+    offsets = CASES["grid_corner"]
+    frames = _color_frames(7, len(offsets) + 1)
+    before = _readback_counters()
+    got = _compose(fn, frames, offsets, StitchConfig(), device="cpu")
+    dev = _compose(fn, frames, offsets, StitchConfig(), device="cpu",
+                   return_device=True)
+    ref = np.asarray(
+        jcompose.compose(frames, offsets, JStitchConfig()) if fn == "compose"
+        else jcompose.compose_from_positions(frames, _positions(offsets),
+                                             JStitchConfig()))
+    assert isinstance(got, np.ndarray) and got.dtype == np.uint8
+    assert got.flags.c_contiguous and got.shape == tuple(dev.shape)
+    np.testing.assert_array_equal(got, dev.numpy())
+    np.testing.assert_array_equal(got, ref)
+    assert _readback_counters() == before
+
+
+@pytest.mark.cuda
+def test_card_readback_bits_and_page_locked():
+    """A card's panorama comes back bit-equal to ``pano.cpu().numpy()``,
+    with its dtype, shape and C-contiguous layout, in page-locked memory,
+    from both composers, color and gray; none falls back to pageable."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    offsets = CASES["grid_corner"]
+    before = _readback_counters()
+    for k, (fn, color) in enumerate([("compose", True), ("compose", False),
+                                     ("compose_from_positions", True),
+                                     ("compose_from_positions", False)]):
+        frames = _color_frames(k, len(offsets) + 1)
+        frames = torch.as_tensor(frames if color else frames[..., 1],
+                                 device="cuda")
+        cfg = StitchConfig(color_mode=color)
+        pano = _compose(fn, frames, offsets, cfg, return_device=True)
+        got = _compose(fn, frames, offsets, cfg)
+        want = pano.cpu().numpy()
+        assert got.dtype == np.uint8 and got.shape == want.shape
+        assert got.flags.c_contiguous
+        np.testing.assert_array_equal(got, want)
+        assert torch.from_numpy(got).is_pinned()
+    after = _readback_counters()
+    assert after["COMPOSE_READBACKS"] - before["COMPOSE_READBACKS"] == 4
+    assert after["COMPOSE_READBACK_PAGEABLE"] == \
+        before["COMPOSE_READBACK_PAGEABLE"]
+
+
+@pytest.mark.cuda
+def test_card_readback_owned_by_the_caller():
+    """Two panoramas held at once lie in distinct blocks, and the second
+    leaves the first unchanged; once the first and a view of it are gone,
+    the next panorama of that shape lands in a block already made."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    offsets = CASES["down"]
+    cfg = StitchConfig()
+    a_frames, b_frames = (torch.as_tensor(_color_frames(s, len(offsets) + 1),
+                                          device="cuda") for s in (1, 2))
+    first = tcompose.compose(a_frames, offsets, cfg)
+    view = first[10:20, 5:50]
+    kept = first.copy()
+    second = tcompose.compose(b_frames, offsets, cfg)
+    assert second.ctypes.data != first.ctypes.data
+    assert not np.array_equal(second, kept)
+    np.testing.assert_array_equal(first, kept)
+    np.testing.assert_array_equal(view, kept[10:20, 5:50])
+    del first, view
+    before = _readback_counters()
+    third = tcompose.compose(a_frames, offsets, cfg)
+    after = _readback_counters()
+    np.testing.assert_array_equal(third, kept)
+    assert after["COMPOSE_READBACKS"] == before["COMPOSE_READBACKS"] + 1
+    assert after["COMPOSE_READBACK_REUSED"] == \
+        before["COMPOSE_READBACK_REUSED"] + 1
+    assert after["COMPOSE_READBACK_PAGEABLE"] == \
+        before["COMPOSE_READBACK_PAGEABLE"]
