@@ -9,10 +9,11 @@ short window of ``--projects`` projects through the timed entry, and the
 numbers the run would compare (the lower readings).  Then the control:
 the plain reference put in the program's place and computed in bfloat16,
 the precision below the float32 the configurations state (the true
-offsets rounded to bfloat16 before they are truncated, the fade blended in
-bfloat16, the gray taken in bfloat16), judged by the same comparison (the
-upper readings).  One JSON line a seed, then the largest program reading
-and the smallest control reading of each number.
+offsets rounded to bfloat16 before they are truncated, the gray taken in
+bfloat16, the configuration's fuse blended in bfloat16 on its color or gray
+frames), judged by the same comparison (the upper readings).  One JSON
+line a seed, then the largest program reading and the smallest control
+reading of each number.
 """
 from __future__ import annotations
 
@@ -29,23 +30,28 @@ from stitchbench import judge, manifest, reference
 from stitchbench.run import Cell
 
 
-def control_numbers(cell: Cell, frames: np.ndarray) -> Dict[str, float]:
+def control_numbers(cell: Cell, decoded: np.ndarray) -> Dict[str, float]:
     """The comparison's numbers for the bfloat16 reference in the
-    program's place."""
+    program's place; ``decoded``: ``cell.decoded()``."""
     p = cell.project
+    color = cell.cfg.color_mode
     ok = reference.pair_overlaps(p.truth, p.frame_hw)
     offs = reference.expected_offsets(p.truth, "bfloat16")
     segs = reference.segments_from_decisions(ok, offs)
-    images = [reference.compose(frames[s:e], o, dtype="bfloat16",
-                                device=cell.device) for (s, e), o in segs]
+    seen = judge.configured_frames(decoded, color, cell.device, "bfloat16")
+    images = [reference.compose(seen[s:e], o, dtype="bfloat16",
+                                device=cell.device, fuse=cell.fuse)
+              for (s, e), o in segs]
+    frames = judge.configured_frames(decoded, color, cell.device)
     out = {"offset_err_px": judge.offset_error(segs, p.truth, p.frame_hw),
            "pano_diff_max": judge.pano_difference(segs, images, frames,
-                                                  cell.device)}
+                                                  cell.device, cell.fuse)}
     if p.files is not None:
-        gray = reference.gray(torch.from_numpy(frames).to(cell.device),
+        gray = reference.gray(torch.from_numpy(decoded).to(cell.device),
                               "bfloat16")
         out["ingest_diff_max"] = judge.ingest_difference(
-            frames, frames, gray, cell.device)
+            decoded, decoded if color else None, gray, cell.device,
+            color=color)
     return out
 
 
@@ -69,9 +75,7 @@ def readings(workload: str, seeds: List[int], projects: int = 1,
             prog, _ = cell.judge(recs, sampled)
             del sampled
             cell.stitcher = cell.entry = cell.batch = None
-            frames = cell.project.color if cell.project.files is None \
-                else judge.decode_all(cell.project.files)
-            ctrl = control_numbers(cell, frames)
+            ctrl = control_numbers(cell, cell.decoded())
         finally:
             cell.close()
         for k, v in prog.items():

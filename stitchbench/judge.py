@@ -10,11 +10,13 @@ limit was set from):
   unregistered where they do, reads ``H + W``.
 - ``pano_diff_max``: over every segment of the sampled projects, the
   largest difference in levels between the panorama returned and the
-  reference's fade of the same frames at the returned offsets; a segment
+  reference's compose of the same frames at the returned offsets, by the
+  configuration's fuse method (``fusers/<fuse_method>.py``), on its color
+  frames or, in a gray configuration, on their reference gray; a segment
   layout or a panorama shape that differs reads 255.
 - ``ingest_diff_max`` (file traffic): the largest difference between the
-  color and gray frames the registration received and the reference's
-  decode of the same files.
+  gray frames (and, in a color configuration, the color frames) the
+  registration received and the reference's decode of the same files.
 """
 from __future__ import annotations
 
@@ -66,13 +68,15 @@ def offset_error(segments, truth: np.ndarray, frame_hw) -> float:
 
 
 def pano_difference(segments, images: Sequence[np.ndarray],
-                    frames: np.ndarray, device="cpu") -> int:
+                    frames: np.ndarray, device="cpu",
+                    fuse=reference.fade) -> int:
     """Worst level difference of a project's panoramas against the
-    reference's compose (on ``device``) of the same segments of
-    ``frames``."""
+    reference's compose (on ``device``, each overlap fused by ``fuse``) of
+    the same segments of ``frames``."""
     worst = 0
     for ((start, end), offs), img in zip(segments, images):
-        ref = reference.compose(frames[start:end], offs, device=device)
+        ref = reference.compose(frames[start:end], offs, device=device,
+                                fuse=fuse)
         img = np.asarray(img)
         if img.shape != ref.shape or img.dtype != np.uint8:
             return WORST_LEVEL
@@ -106,20 +110,38 @@ def decode_all(files: Sequence[str]) -> np.ndarray:
         return np.stack(list(pool.map(reference.decode, files)))
 
 
+def configured_frames(decoded: np.ndarray, color: bool, device="cpu",
+                      dtype: str = "float32") -> np.ndarray:
+    """The (N, H, W, 3) BGR ``decoded`` frames as a configuration composes
+    them: themselves in color, else their reference gray, uint8, worked
+    out on ``device`` in blocks of frames."""
+    if color:
+        return decoded
+    out = np.empty(decoded.shape[:3], np.uint8)
+    for s in range(0, len(decoded), 16):
+        bgr = torch.from_numpy(decoded[s:s + 16]).to(device)
+        out[s:s + 16] = reference.gray(bgr, dtype).cpu().numpy()
+    return out
+
+
 def ingest_difference(decoded: np.ndarray, color_seen, gray_seen,
-                      device="cpu", dtype: str = "float32") -> int:
+                      device="cpu", dtype: str = "float32",
+                      color: bool = True) -> int:
     """Worst level difference between the frames registration received
-    (color and gray, arrays or tensors) and the reference's ``decoded``
-    frames with their gray, on ``device`` in blocks of frames."""
-    if tuple(color_seen.shape) != decoded.shape or \
-            tuple(gray_seen.shape) != decoded.shape[:3]:
+    (arrays or tensors) and the reference's ``decoded`` frames: their gray
+    always, and in a ``color`` configuration the color frames too, which
+    the program must then hold; on ``device`` in blocks of frames."""
+    if tuple(gray_seen.shape) != decoded.shape[:3] or color and (
+            color_seen is None or tuple(color_seen.shape) != decoded.shape):
         return WORST_LEVEL
     worst, step = 0, 16
     for s in range(0, len(decoded), step):
         bgr = torch.from_numpy(decoded[s:s + step]).to(device)
         g = reference.gray(bgr, dtype)
-        worst = max(worst, max_abs_diff(color_seen[s:s + step], bgr, device),
-                    max_abs_diff(gray_seen[s:s + step], g, device))
+        worst = max(worst, max_abs_diff(gray_seen[s:s + step], g, device))
+        if color:
+            worst = max(worst, max_abs_diff(color_seen[s:s + step], bgr,
+                                            device))
     return int(worst)
 
 

@@ -5,10 +5,13 @@
 - a cell's correctness limits: ``checks/<workload>.json``;
 - a per-layer metric: ``metrics/<metric>.py``, defining ``read(run)`` and,
   optionally, ``WRAP`` (program functions whose calls it reads) and
-  ``COUNTERS`` (program launch counters it reads).
+  ``COUNTERS`` (program launch counters it reads);
+- the reference's fusion of one overlap, for a configuration's
+  ``stitch_config.fuse_method``: ``fusers/<fuse_method>.py``, defining
+  ``fuse(before, after, drow, dcol, color, dtype)`` as ``reference.fade``.
 
-A later cell, configuration or metric is added by adding its files and its
-entries in ``BENCHMARK.json``; no file here changes.
+A later cell, configuration, fuse method or metric is added by adding its
+files and its entries in ``BENCHMARK.json``; no file here changes.
 """
 from __future__ import annotations
 
@@ -66,16 +69,32 @@ class Manifest:
     def reader(self, metric: str):
         return load_reader(self.bench_dir / "metrics" / f"{metric}.py")
 
+    def fuser(self, method: str):
+        """``fusers/<method>.py``'s ``fuse``; a KeyError naming the method
+        where there is no such file."""
+        path = fuser_file(self.bench_dir, method)
+        if path is None:
+            raise KeyError(f"no fuser for fuse_method {method!r}: "
+                           f"stitchbench/fusers/{method}.py is missing")
+        return load_reader(path, "stitchbench_fuser_").fuse
+
 
 def _load(path: Path) -> dict:
     with open(path) as f:
         return json.load(f)
 
 
-def load_reader(path: Path):
-    """Import a metric's reader module from its file."""
+def fuser_file(bench_dir: Path, method: str) -> Optional[Path]:
+    """``fusers/<method>.py`` under ``bench_dir``; None where ``method`` is
+    not a name or the file is not there."""
+    path = bench_dir / "fusers" / f"{method}.py"
+    return path if NAME.match(method) and path.is_file() else None
+
+
+def load_reader(path: Path, prefix: str = "stitchbench_metric_"):
+    """Import a metric's reader (or a fuser) module from its file."""
     spec = importlib.util.spec_from_file_location(
-        "stitchbench_metric_" + path.stem.replace(".", "_"), path)
+        prefix + path.stem.replace(".", "_"), path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -102,6 +121,11 @@ def problems(data: dict, root: Optional[Path] = None) -> List[str]:
         _line(out, c["why"])
         if root is not None and not (root / c["file"]).is_file():
             out.append(f"missing {c['file']}")
+        elif root is not None:
+            method = _load(root / c["file"])["stitch_config"]["fuse_method"]
+            if fuser_file(root / "stitchbench", method) is None:
+                out.append(f"{c['name']}: no fuser for fuse_method "
+                           f"{method!r}")
     pairs = set()
     for w in data.get("workloads", []):
         if set(w) != {"name", "config", "traffic", "chips", "why"}:

@@ -12,10 +12,11 @@ panoramas it composes again from the benchmark's own frames.
   reference's ``int()`` of the mean displacement); a pair that does not
   overlap must fail and break the sequence.
 - Composition: ``compose`` places the frames as the reference does and
-  fuses each overlap with the fade ramps, in float32 weights worked out on
-  the host, the blend rounded once to float32 from the exact product of B
-  and the rounded product of A (the fused multiply-add of
-  ``wa * a + wb * b``), on the device it is given.
+  fuses each overlap by the fuse it is given (a configuration's
+  ``fusers/<fuse_method>.py``), by default ``fade``: the fade ramps, in
+  float32 weights worked out on the host, the blend rounded once to
+  float32 from the exact product of B and the rounded product of A (the
+  fused multiply-add of ``wa * a + wb * b``), on the device it is given.
 - Ingest: ``decode`` reads each JPEG with cv2 and takes the gray by cv2's
   14-bit fixed-point rule.
 
@@ -229,12 +230,13 @@ def fade(a: torch.Tensor, b: torch.Tensor, drow: int, dcol: int,
 
 
 def compose(frames: np.ndarray, offsets: Sequence[Tuple[int, int]],
-            dtype: str = "float32", device="cpu") -> np.ndarray:
-    """The fade panorama of host ``frames`` ((N, H, W[, 3]) uint8) placed
-    by ``offsets``, built on ``device``: each frame is pasted in turn, and
+            dtype: str = "float32", device="cpu", fuse=fade) -> np.ndarray:
+    """The panorama of host ``frames`` ((N, H, W[, 3]) uint8) placed by
+    ``offsets``, built on ``device``: each frame is pasted in turn, and
     where it meets the occupancy rect of the frame before it, that rect is
     fused from the canvas before and after the paste
-    (Stitcher.py:440-486)."""
+    (Stitcher.py:440-486) by ``fuse(before, after, drow, dcol, color,
+    dtype)``, as ``fade`` does."""
     n, h, w = frames.shape[:3]
     if n == 1:
         return frames[0].copy()
@@ -255,7 +257,7 @@ def compose(frames: np.ndarray, offsets: Sequence[Tuple[int, int]],
         canvas[r:r + h, c:c + w] = frame
         after = canvas[r0:r1, c0:c1].to(torch.int32)
         drow, dcol = offsets[i - 1]
-        canvas[r0:r1, c0:c1] = fade(before, after, int(drow), int(dcol),
+        canvas[r0:r1, c0:c1] = fuse(before, after, int(drow), int(dcol),
                                     color, dtype)
     return canvas.clamp_(min=0).to(torch.uint8).cpu().numpy()
 

@@ -13,7 +13,9 @@ files), each project starting from the direction the one before it left,
 and ends with the first project that finishes after ``--seconds``.  Once
 it has closed, every project's registration and the sampled projects'
 panoramas (and, for files, the frames registration received) are compared
-with the plain reference (``judge.py``).
+with the plain reference (``judge.py``), which composes by the
+configuration's own fuse method (``fusers/<fuse_method>.py``; set-up stops
+where there is none) on its color frames or, in gray, on their gray.
 
 ``--trace 0`` prints the cell's end-to-end metrics; ``--trace 1`` runs the
 window's first ``TRACE_SECONDS`` (whole projects) under ``torch.profiler``
@@ -134,6 +136,7 @@ class Cell:
         self.limits = limits or bench.limits(workload)
         self.device = torch.device(device)
         self.cfg = stitch_config(bench.config(wl["config"]))
+        self.fuse = bench.fuser(self.cfg.fuse_method)
         self.file_dir = os.path.join(tempfile.gettempdir(), "stitchbench",
                                      workload)
         self.project = projects.build(self.traffic, seed, self.device,
@@ -203,25 +206,35 @@ class Cell:
             if te - t0 >= seconds:
                 return t0, te, recs, sampled
 
+    def decoded(self) -> np.ndarray:
+        """The project's color frames, or the reference's decode of its
+        files."""
+        p = self.project
+        return p.color if p.files is None else judge.decode_all(p.files)
+
     def judge(self, recs: List[dict], sampled: List[dict]):
         """The numbers compared, once the window has closed.  Files are
-        judged against the reference's own decode of them."""
+        judged against the reference's own decode of them; panoramas by
+        the configuration's fuse, on its color or gray frames."""
         p = self.project
         numbers = {"offset_err_px": max(
             judge.offset_error(r["segments"], p.truth, p.frame_hw)
             for r in recs)}
-        frames = p.color if p.files is None else judge.decode_all(p.files)
+        decoded = self.decoded()
+        frames = judge.configured_frames(decoded, self.cfg.color_mode,
+                                         self.device)
         numbers["pano_diff_max"] = max(
             judge.pano_difference(judge.segments_of(s["results"]),
                                   [r.image for r in s["results"]], frames,
-                                  self.device)
+                                  self.device, self.fuse)
             for s in sampled)
         if p.files is not None:
             worst = 0
             for s in sampled:
                 b = s["batch"]
                 worst = max(worst, judge.ingest_difference(
-                    frames, b.color, b.gray, self.device))
+                    decoded, b.color, b.gray, self.device,
+                    color=self.cfg.color_mode))
             numbers["ingest_diff_max"] = worst
         failed = sum(judge.offset_error(r["segments"], p.truth, p.frame_hw)
                      > self.limits["offset_err_px"] for r in recs)
