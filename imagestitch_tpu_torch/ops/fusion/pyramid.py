@@ -34,6 +34,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from ...utils import profiling
+
 _K5 = (0.0625, 0.25, 0.375, 0.25, 0.0625)
 _K5_UP = tuple(2.0 * k for k in _K5)
 
@@ -243,13 +245,15 @@ def resize_weights(m: int, n: int, method: str) -> np.ndarray:
     return out
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=1024)
 def _band(m: int, n: int, method: str, device: torch.device,
           bf16: bool = False):
     """The non-zero band of ``resize_weights``: (first source index (n,),
     weights (n, T) float32, zero-padded) on ``device``, T the widest
     column's span.  ``bf16``: the weights rounded to bfloat16, as jax
-    casts them to a bfloat16 image's dtype."""
+    casts them to a bfloat16 image's dtype.  The cache holds more shapes
+    than a project's rects make (the dendritic grid's 87 make 67), since
+    each miss copies the band to the card, which waits for its queue."""
     wts = resize_weights(m, n, method)
     if bf16:
         wts = torch.from_numpy(wts.copy()).to(torch.bfloat16).to(
@@ -453,6 +457,19 @@ def gaussian_pyramid(x: torch.Tensor, level: int) -> List[torch.Tensor]:
     return gp
 
 
+def _expand_to(x: torch.Tensor, shape_hw: Tuple[int, int]) -> torch.Tensor:
+    """pyrUp of a level, resized to the next finer level's shape where that
+    is odd; each such resize is the ``compose.multiband.resize`` span and
+    counts in ``COMPOSE_MULTIBAND_RESIZES`` (the seam's masked blend takes
+    the same pyramid, so its resizes count there too)."""
+    up = pyr_up(x)
+    if tuple(up.shape) == tuple(shape_hw):
+        return up
+    profiling.count("COMPOSE_MULTIBAND_RESIZES")
+    with profiling.span("compose.multiband.resize"):
+        return _resize_to(up, shape_hw)
+
+
 def laplacian_pyramid(x: torch.Tensor, level: int
                       ) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """The effective reference Laplacian stack: (lp, gp) with
@@ -461,8 +478,7 @@ def laplacian_pyramid(x: torch.Tensor, level: int
     gp = gaussian_pyramid(x, level)
     lp = [gp[level - 1]]
     for i in range(level - 1, 0, -1):
-        ge = _resize_to(pyr_up(gp[i]), tuple(gp[i - 1].shape))
-        lp.append(gp[i - 1] - ge)
+        lp.append(gp[i - 1] - _expand_to(gp[i], tuple(gp[i - 1].shape)))
     return lp, gp
 
 
@@ -470,7 +486,7 @@ def reconstruct(lp: List[torch.Tensor]) -> torch.Tensor:
     """pyrUp + add chain (ImageFusion.py:353-359)."""
     out = lp[0]
     for i in range(1, len(lp)):
-        out = _resize_to(pyr_up(out), tuple(lp[i].shape)) + lp[i]
+        out = _expand_to(out, tuple(lp[i].shape)) + lp[i]
     return out
 
 
@@ -506,6 +522,7 @@ def fuse_multiband(image_a: torch.Tensor, image_b: torch.Tensor
     regions with -1 sentinels: background pre-fill, then a 4-level
     half/half blend; uint8 out."""
     from .blend import _prefill_background
-    a, b = _prefill_background(image_a, image_b)
-    out = blend_half(a.to(torch.float32), b.to(torch.float32), 4)
-    return out.clamp(0, 255).to(torch.uint8)
+    with profiling.span("compose.multiband"):
+        a, b = _prefill_background(image_a, image_b)
+        out = blend_half(a.to(torch.float32), b.to(torch.float32), 4)
+        return out.clamp(0, 255).to(torch.uint8)

@@ -41,6 +41,9 @@ REGISTER_DISPATCHES = 0
 COMPOSE_READBACKS = 0
 COMPOSE_READBACK_REUSED = 0
 COMPOSE_READBACK_PAGEABLE = 0
+#: resizes of an expanded multiband level to an odd finer level
+#: (``ops/fusion/pyramid._expand_to``)
+COMPOSE_MULTIBAND_RESIZES = 0
 # host nanoseconds of each span, named after it (see ``span``); the ingest
 # decode and gray run on the decode worker thread, the rest on the caller's
 INGEST_DECODE_NS = 0
@@ -57,6 +60,8 @@ COMPOSE_NS = 0
 COMPOSE_UPLOAD_NS = 0
 COMPOSE_FUSE_NS = 0
 COMPOSE_READBACK_NS = 0
+COMPOSE_MULTIBAND_NS = 0
+COMPOSE_MULTIBAND_RESIZE_NS = 0
 
 _LOCK = threading.Lock()
 _GLOBALS = globals()
