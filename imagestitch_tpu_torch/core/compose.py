@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..config import StitchConfig
-from ..device import resolve_device
+from ..device import resolve_device, to_device
 from ..ops.fusion import blend
 from ..ops.fusion import pyramid as fusion_pyramid
 from ..ops.fusion import seam as fusion_seam
@@ -157,8 +157,7 @@ def _run_steps(steps, images, canvas_shape, pairwise, cfg: StitchConfig,
                          f"frames only (the reference's), got color")
     if not isinstance(images, torch.Tensor):
         with profiling.span("compose.upload"):
-            images = torch.as_tensor(images).to(resolve_device(device,
-                                                               "compose"))
+            images = to_device(images, resolve_device(device, "compose"))
     color = images.dim() == 4
     h, w = images.shape[1:3]
     with profiling.span("compose.fuse"):

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..config import StitchConfig
-from ..device import resolve_device
+from ..device import resolve_device, to_device
 from ..io import codec, dataset
 from ..utils import profiling
 from ..utils.records import SequenceReport, print_and_write
@@ -84,7 +84,7 @@ class Stitcher:
         return self.mesh is not None and self.mesh.size > 1
 
     def _to_device(self, x) -> torch.Tensor:
-        return torch.as_tensor(x).to(self.device)
+        return to_device(x, self.device)
 
     # -- registration ------------------------------------------------------
 

@@ -41,6 +41,13 @@ REGISTER_DISPATCHES = 0
 COMPOSE_READBACKS = 0
 COMPOSE_READBACK_REUSED = 0
 COMPOSE_READBACK_PAGEABLE = 0
+#: chunks of host arrays sent to a card through a page-locked staging
+#: block (``device.StagingRing``); of them, those through a block an
+#: earlier chunk had used; and the arrays sent from pageable memory
+#: because no block could be locked
+UPLOAD_CHUNKS = 0
+UPLOAD_CHUNKS_REUSED = 0
+UPLOAD_PAGEABLE = 0
 #: resizes of an expanded multiband level to an odd finer level
 #: (``ops/fusion/pyramid._expand_to``)
 COMPOSE_MULTIBAND_RESIZES = 0

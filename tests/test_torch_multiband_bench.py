@@ -145,7 +145,8 @@ def test_the_manifest_has_no_problems():
     assert [m["name"] for m in bench.per_layer(CELL)] == [
         "compose.multiband.s_per_frame",
         "compose.multiband.resize.s_per_frame",
-        "compose.multiband.resizes_per_frame"]
+        "compose.multiband.resizes_per_frame",
+        "upload.stage_reuse_share"]
     cfg = bench.config("dendritic_multiband")["stitch_config"]
     assert (cfg["color_mode"], cfg["fuse_method"]) == (
         False, "multiBandBlending")
