@@ -646,6 +646,30 @@ def _oriented_fallback_incre(images: torch.Tensor,
     return out
 
 
+def _upright_first(cfg: StitchConfig) -> Tuple[bool, StitchConfig]:
+    """(fast, cfg of the first pool): with ``auto_upright`` the pool is
+    upright and registers the translation-only stages, and the pairs it
+    leaves retry oriented."""
+    fast = cfg.features.auto_upright and not cfg.features.upright
+    return fast, cfg.replace(features=dataclasses.replace(
+        cfg.features, upright=True)) if fast else cfg
+
+
+def _replay_pool(images: torch.Tensor, pool, cfg: StitchConfig
+                 ) -> List[reg.PairRegistration]:
+    """The records of ``images`` from their pool, computed with
+    ``_upright_first(cfg)``'s config: the replay over the pool, then, on
+    the upright-first route, the oriented fallback of the failed pairs."""
+    n, h, w = images.shape
+    fast, cfg_pool = _upright_first(cfg)
+    with profiling.span("register.match"):
+        recs = replay_from_pool(pool, n, (h, w), cfg_pool)
+    if fast and any(not r.ok for r in recs):
+        with profiling.span("register.fallback"):
+            recs = _oriented_fallback_incre(images, recs, cfg, (h, w))
+    return recs
+
+
 def register_sequence_features_incre(images, cfg: StitchConfig,
                                      device="cuda"
                                      ) -> List[reg.PairRegistration]:
@@ -674,19 +698,10 @@ def register_sequence_features_incre(images, cfg: StitchConfig,
             return reg._replay_incremental(n - 1, cfg, cache, accept,
                                            extract, (h, w),
                                            offsets_are_full=False)
-    # upright-first (auto_upright): the upright pool registers translation
-    # -only stages; the pairs it cannot register retry with orientation
-    fast = cfg.features.auto_upright and not cfg.features.upright
-    cfg_pool = cfg.replace(features=dataclasses.replace(
-        cfg.features, upright=True)) if fast else cfg
+    _, cfg_pool = _upright_first(cfg)
     with profiling.span("register.pool"):
         pool = _precompute_pool(images, cfg_pool)
-    with profiling.span("register.match"):
-        recs = replay_from_pool(pool, n, (h, w), cfg_pool)
-    if fast and any(not r.ok for r in recs):
-        with profiling.span("register.fallback"):
-            recs = _oriented_fallback_incre(images, recs, cfg, (h, w))
-    return recs
+    return _replay_pool(images, pool, cfg)
 
 
 def _match_vote_adjacent(pool, ia: np.ndarray, cfg: StitchConfig,
@@ -762,7 +777,7 @@ def register_sequence_features(images, cfg: StitchConfig, device="cuda"
         images = enhance.enhance_batch(images, emode == "clahe",
                                        cfg.enhance.clip_limit,
                                        cfg.enhance.tile_size)
-    fast = cfg.features.auto_upright and not cfg.features.upright
+    fast, _ = _upright_first(cfg)
     sparams_fast = dataclasses.replace(sparams, upright=True) if fast \
         else sparams
     pool_of = lambda ims, sp: pool_features(

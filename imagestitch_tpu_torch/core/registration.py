@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..config import StitchConfig, direction_increase, max_roi_scale
-from ..device import resolve_device
+from .. import device as device_mod
 from ..ops import phase_corr, roi
 from ..parallel import tp_fft
 
@@ -66,7 +66,8 @@ def _as_images(images, device, caller: str) -> torch.Tensor:
     ``compose``: a caller moves a tensor itself (``Stitcher.register``)."""
     if isinstance(images, torch.Tensor):
         return images
-    return torch.as_tensor(images).to(resolve_device(device, caller))
+    return device_mod.to_device(images,
+                                device_mod.resolve_device(device, caller))
 
 
 class AttemptCache:

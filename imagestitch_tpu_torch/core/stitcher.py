@@ -56,6 +56,14 @@ def _host(x) -> np.ndarray:
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+def _gray_host(batch: dataset.ImageBatch) -> Optional[np.ndarray]:
+    """The gray frames the host holds, for the streamed-output composers:
+    the batch's host copy, else its gray frames if they are numpy."""
+    if batch.gray_host is not None:
+        return batch.gray_host
+    return batch.gray if isinstance(batch.gray, np.ndarray) else None
+
+
 class Stitcher:
     """The engine facade for one configuration on one device or a mesh.
 
@@ -82,9 +90,6 @@ class Stitcher:
 
     def _sharded(self) -> bool:
         return self.mesh is not None and self.mesh.size > 1
-
-    def _to_device(self, x) -> torch.Tensor:
-        return to_device(x, self.device)
 
     # -- registration ------------------------------------------------------
 
@@ -113,7 +118,8 @@ class Stitcher:
                        pooled_sharded.register_sequence_features_incre_sharded)
             recs = sharded(gray, cfg, self.mesh)
         else:
-            recs = registrar(self._to_device(gray), cfg, device=self.device)
+            recs = registrar(to_device(gray, self.device), cfg,
+                             device=self.device)
         self._after_register(recs)
         return recs
 
@@ -162,8 +168,9 @@ class Stitcher:
             # gray mode, composes; color mode composes batch.color
             with profiling.span("register.upload"):
                 gray = batch.gray if self.cfg.color_mode else \
-                    self._to_device(batch.gray)
-                gray_dev = self._to_device(gray) if recs is None else None
+                    to_device(batch.gray, self.device)
+                gray_dev = to_device(gray, self.device) if recs is None \
+                    else None
             if recs is None:
                 recs = self.register(gray_dev)
                 # color mode's copy of the gray frames is not held through
@@ -222,7 +229,7 @@ class Stitcher:
         conf = [max(recs[k].confidence, 1e-3) for k in range(start, end)]
         graph = pg.PoseGraph.from_chain(subpix, conf)
         if end - start + 1 >= 3:
-            gray_seg = self._to_device(gray[start:end + 1])
+            gray_seg = to_device(gray[start:end + 1], self.device)
             graph, n_loop = loop_closure.close_loops(
                 gray_seg, graph, pg.chain_positions(subpix),
                 tuple(gray_seg.shape[1:]), device=self.device)
@@ -253,13 +260,12 @@ class Stitcher:
                     return stream_out.compose_host_positions(
                         seg_images, positions, cfg)
             else:
-                host = batch.gray_host if batch.gray_host is not None else (
-                    batch.gray if isinstance(batch.gray, np.ndarray) else None)
+                host = _gray_host(batch)
                 if host is not None and native_loader.get_lib() is not None:
                     return stream_out.compose_host_positions(
                         host[start:end + 1], positions, cfg)
-        return compose_mod.compose_from_positions(
-            self._to_device(seg_images), positions, cfg)
+        return compose_mod.compose_from_positions(seg_images, positions, cfg,
+                                                  device=self.device)
 
     def _compose_segment(self, batch: dataset.ImageBatch, seg_images,
                          seg_offsets, start: int, end: int) -> np.ndarray:
@@ -280,8 +286,7 @@ class Stitcher:
                     return stream_out.compose_color_host(
                         seg_images, seg_offsets, cfg)
             else:
-                host = batch.gray_host if batch.gray_host is not None else (
-                    batch.gray if isinstance(batch.gray, np.ndarray) else None)
+                host = _gray_host(batch)
                 if host is not None and paddable and \
                         native_loader.get_lib() is not None:
                     return stream_out.compose_host(host[start:end + 1],
@@ -289,11 +294,9 @@ class Stitcher:
                 if host is not None:
                     return stream_out.compose_streamed(
                         host[start:end + 1], seg_offsets, cfg,
-                        frames_dev=self._to_device(seg_images),
-                        device=self.device)
-        with profiling.span("compose.upload"):
-            frames = self._to_device(seg_images)
-        return compose_mod.compose(frames, seg_offsets, cfg)
+                        frames_dev=seg_images, device=self.device)
+        return compose_mod.compose(seg_images, seg_offsets, cfg,
+                                   device=self.device)
 
     def stitch_files(self, files: Sequence[str]) -> List[StitchResult]:
         """Stitch a file sequence with pipelined ingest: decode of chunk

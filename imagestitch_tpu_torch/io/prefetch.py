@@ -2,9 +2,10 @@
 
 Port of ``imagestitch_tpu/io/prefetch.py`` (:22-95, :188-243).  A worker
 thread decodes chunk k+1 while chunk k is copied to the device and pooled.
-On a CUDA device each chunk's copy is issued from pinned host memory on a
-side stream; the main stream waits on that copy's event before the pool
-reads the chunk.  The pool is per frame, so chunking changes no record.
+Each chunk goes to the device by ``device.to_device``: to a card through
+its page-locked staging ring, whose copies the current stream waits on
+before the pool reads the chunk.  The pool is per frame, so chunking
+changes no record.
 
 The JAX package's XLA warm-ups (``_warm_pool_programs_async``,
 ``_warm_replay``) have no counterpart: PyTorch runs eagerly and the CUDA
@@ -12,14 +13,13 @@ kernels are built once per machine (ROADMAP's do-not-port list).
 """
 from __future__ import annotations
 
-import dataclasses
 from concurrent.futures import ThreadPoolExecutor
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from .. import device as device_mod
 from ..utils import profiling
 from . import dataset
 
@@ -51,37 +51,9 @@ class ChunkPrefetcher:
                 yield batch
 
 
-class Uploader:
-    """Host uint8 chunks -> tensors on ``device``.
-
-    On a CUDA device: pinned copy of the chunk, H2D on a side stream, the
-    current stream waits on the copy's event, and the device tensor is
-    recorded on the current stream (it was allocated on the side stream).
-    The pinned buffers live as long as the uploader.  On the CPU the chunk
-    is wrapped without a copy."""
-
-    def __init__(self, device):
-        self.device = torch.device(device)
-        self._cuda = self.device.type == "cuda"
-        self._pinned: List[torch.Tensor] = []
-        if self._cuda:
-            self._stream = torch.cuda.Stream(self.device)
-
-    def __call__(self, host: np.ndarray) -> torch.Tensor:
-        with profiling.span("ingest.upload"):
-            t = torch.from_numpy(np.ascontiguousarray(host))
-            if not self._cuda:
-                return t.to(self.device)
-            pinned = t.pin_memory()
-            self._pinned.append(pinned)
-            main = torch.cuda.current_stream(self.device)
-            with torch.cuda.stream(self._stream):
-                dev = pinned.to(self.device, non_blocking=True)
-                copied = torch.cuda.Event()
-                copied.record(self._stream)
-            main.wait_event(copied)
-            dev.record_stream(main)
-            return dev
+def _upload(host: np.ndarray, device) -> torch.Tensor:
+    with profiling.span("ingest.upload"):
+        return device_mod.to_device(host, device)
 
 
 def _cat(chunks):
@@ -105,11 +77,11 @@ def pooled_features_pipelined(files: Sequence[str], cfg,
     ``_precompute_pool``.
     """
     from ..core import feature_registration as freg
-    upload = Uploader(resolve_device(device, "pooled_features_pipelined"))
+    device = device_mod.resolve_device(device, "pooled_features_pipelined")
     dev_chunks, host_chunks, pools = [], [], []
     for batch in ChunkPrefetcher(files, color_mode=False,
                                  chunk_frames=chunk_frames):
-        dev = upload(batch.gray)
+        dev = _upload(batch.gray, device)
         with profiling.span("register.pool"):
             pools.append(freg._precompute_pool(dev, cfg))
         dev_chunks.append(dev)
@@ -129,12 +101,13 @@ def load_batch_pipelined(files: Sequence[str], color_mode: bool,
     ``to_device`` the gray frames land on ``device`` (the card unless the
     caller passes ``device="cpu"``), else they stay on the host as numpy;
     color frames (composition input) stay on the host."""
-    upload = (Uploader(resolve_device(device, "load_batch_pipelined"))
-              if to_device else None)
+    if to_device:
+        device = device_mod.resolve_device(device, "load_batch_pipelined")
     gray_chunks, color_chunks, all_files = [], [], []
     for batch in ChunkPrefetcher(files, color_mode=color_mode,
                                  chunk_frames=chunk_frames):
-        gray_chunks.append(upload(batch.gray) if to_device else batch.gray)
+        gray_chunks.append(_upload(batch.gray, device) if to_device
+                           else batch.gray)
         if color_mode:
             color_chunks.append(batch.color)
         all_files.extend(batch.files)
@@ -157,16 +130,9 @@ def register_sequence_pipelined(files: Sequence[str], cfg,
     ``device="cpu"``) and, with ``keep_host``, the host batch.
     """
     from ..core import feature_registration as freg
-    fast = cfg.features.auto_upright and not cfg.features.upright
-    cfg_pool = cfg.replace(features=dataclasses.replace(
-        cfg.features, upright=True)) if fast else cfg
+    _, cfg_pool = freg._upright_first(cfg)
     pool, gray_dev, gray_host = pooled_features_pipelined(
         files, cfg_pool, chunk_frames, keep_host,
-        device=resolve_device(device, "register_sequence_pipelined"))
-    n, h, w = gray_dev.shape
-    with profiling.span("register.match"):
-        recs = freg.replay_from_pool(pool, n, (h, w), cfg_pool)
-    if fast and any(not r.ok for r in recs):
-        with profiling.span("register.fallback"):
-            recs = freg._oriented_fallback_incre(gray_dev, recs, cfg, (h, w))
-    return recs, gray_dev, gray_host
+        device=device_mod.resolve_device(device,
+                                         "register_sequence_pipelined"))
+    return freg._replay_pool(gray_dev, pool, cfg), gray_dev, gray_host

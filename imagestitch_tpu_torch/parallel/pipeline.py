@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..config import StitchConfig
-from ..device import resolve_device
+from ..device import resolve_device, to_device
 from ..ops import phase_corr, roi
 from ..solver import pose_graph as pg
 from . import mesh as mesh_mod
@@ -57,9 +57,8 @@ def make_pair_tensors(images, mesh=None, device="cuda"
     pair, split into per-shard blocks."""
     n_pairs = images.shape[0] - 1
     if mesh is None:
-        dev = images if isinstance(images, torch.Tensor) else \
-            torch.as_tensor(images).to(resolve_device(device,
-                                                      "make_pair_tensors"))
+        dev = images if isinstance(images, torch.Tensor) else to_device(
+            images, resolve_device(device, "make_pair_tensors"))
         return dev[:-1], dev[1:], n_pairs
     idx = torch.as_tensor(np.minimum(np.arange(pad_to_multiple(
         max(n_pairs, mesh.size), mesh.size)), n_pairs - 1))

@@ -34,6 +34,7 @@ import torch
 from ..config import StitchConfig, max_roi_scale
 from ..core import feature_registration as freg
 from ..core import registration as reg
+from ..device import to_device
 from .mesh import all_gather, pad_to_multiple, ppermute, shard
 
 
@@ -159,14 +160,6 @@ class ShardedPooledCache:
         return store[pair]
 
 
-def _upright_first(cfg: StitchConfig):
-    """(fast, cfg of the first pool): with ``auto_upright`` the pool is
-    upright, and the pairs it leaves retry oriented."""
-    fast = cfg.features.auto_upright and not cfg.features.upright
-    return fast, cfg.replace(features=dataclasses.replace(
-        cfg.features, upright=True)) if fast else cfg
-
-
 def register_sequence_features_incre_sharded(images, cfg: StitchConfig,
                                              mesh
                                              ) -> List[reg.PairRegistration]:
@@ -178,7 +171,7 @@ def register_sequence_features_incre_sharded(images, cfg: StitchConfig,
     if n < 2:
         return []
     shards, _ = shard_frames(images, mesh)
-    fast, cfg_pool = _upright_first(cfg)
+    fast, cfg_pool = freg._upright_first(cfg)
     pools = pool_features_sharded(shards, cfg_pool)
     _, _, metric = freg._families(cfg_pool)
     cache = ShardedPooledCache(pools, cfg_pool, h, w, metric, mesh=mesh)
@@ -187,7 +180,7 @@ def register_sequence_features_incre_sharded(images, cfg: StitchConfig,
         freg._pool_extract, (h, w), offsets_are_full=True)
     if fast and any(not r.ok for r in recs):
         recs = freg._oriented_fallback_incre(
-            torch.as_tensor(images).to(mesh.devices[0]), recs, cfg, (h, w))
+            to_device(images, mesh.devices[0]), recs, cfg, (h, w))
     return recs
 
 
@@ -203,7 +196,7 @@ def register_sequence_features_sharded(images, cfg: StitchConfig, mesh
     if n < 2:
         return []
     shards, _ = shard_frames(images, mesh)
-    fast, _ = _upright_first(cfg)
+    fast, _ = freg._upright_first(cfg)
     sparams = freg._describe_params(cfg)
     sparams_fast = dataclasses.replace(sparams, upright=True) if fast \
         else sparams
@@ -231,7 +224,7 @@ def register_sequence_features_sharded(images, cfg: StitchConfig, mesh
         frames = sorted({f for k in failed for f in (k, k + 1)})
         fmap = {f: i for i, f in enumerate(frames)}
         dev0 = mesh.devices[0]
-        imgs = torch.as_tensor(images).to(dev0)
+        imgs = to_device(images, dev0)
         mini = freg.pool_features(
             imgs[torch.as_tensor(frames, device=dev0)],
             freg._detect_params(cfg), sparams, max_pool=max_kp,

@@ -23,7 +23,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, to_device
 from ..ops import phase_corr
 
 
@@ -98,8 +98,7 @@ def verify_edges(images, positions: np.ndarray,
         z = np.zeros(0)
         return z.astype(np.int32), z.astype(np.int32), z.reshape(0, 2), z
     if not isinstance(images, torch.Tensor):
-        images = torch.as_tensor(images).to(resolve_device(device,
-                                                           "verify_edges"))
+        images = to_device(images, resolve_device(device, "verify_edges"))
     n, h, w = images.shape
     pos = np.round(np.asarray(positions, np.float64)).astype(np.int64)
     d0 = np.stack([pos[j] - pos[i] for i, j in edges])   # (E, 2) prior offset

@@ -14,7 +14,7 @@ from imagestitch_tpu.io import native_loader as jnative
 from imagestitch_tpu_torch import FeatureConfig, StitchConfig
 from imagestitch_tpu_torch.core import feature_registration as tfr
 from imagestitch_tpu_torch.io import codec, dataset, native_loader, prefetch
-from imagestitch_tpu_torch.utils import synthetic
+from imagestitch_tpu_torch.utils import profiling, synthetic
 from test_torch_jax_chain import two_threads
 
 H, W = 320, 400
@@ -152,16 +152,22 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_cuda_pipelined_ingest_matches_serial(frames, tmp_path, cuda_device):
-    """Pinned side-stream copies of 2-frame chunks on the card give the
-    serial run's frames and records."""
+    """2-frame chunks sent through the card's staging ring give the serial
+    run's frames and records; each chunk of each loader is one chunk of
+    the ring."""
     files = _write(tmp_path, frames[0], "png")
+    chunks = -(-len(files) // 2)
+    before = profiling.UPLOAD_CHUNKS
     recs, gray_dev, _ = prefetch.register_sequence_pipelined(
         files, _cfg(), chunk_frames=2, device=cuda_device)
+    assert profiling.UPLOAD_CHUNKS - before == chunks
     assert gray_dev.device.type == "cuda"
     np.testing.assert_array_equal(gray_dev.cpu().numpy(), frames[0])
     ref = tfr.register_sequence_features_incre(frames[0], _cfg(),
                                                device=cuda_device)
     assert recs == ref
+    before = profiling.UPLOAD_CHUNKS
     batch = prefetch.load_batch_pipelined(files, False, chunk_frames=2,
                                           device=cuda_device)
+    assert profiling.UPLOAD_CHUNKS - before == chunks
     assert torch.equal(batch.gray, gray_dev)

@@ -4,7 +4,9 @@
 On the CPU: the chunk plan covers every element of gray and color
 batches once, in C order, also for a view that is not contiguous and a
 frame smaller than one chunk, and the fill of a block writes them in that
-order; a CPU target and a tensor already where it is sent pass through.
+order; a CPU target and a tensor already where it is sent pass through;
+the pipelined loaders' chunks and the registrars' numpy frames take that
+route.
 On the card (``cuda``): the bytes equal a pageable ``.to("cuda")`` when a
 kernel reads them with no host sync and the host overwrites its array at
 once; a second upload reuses the ring and locks no block; a failure to
@@ -14,11 +16,13 @@ import numpy as np
 import pytest
 import torch
 
-from imagestitch_tpu_torch import StitchConfig, Stitcher, device
+from imagestitch_tpu_torch import FeatureConfig, StitchConfig, Stitcher, device
 from imagestitch_tpu_torch.core import compose as tcompose
+from imagestitch_tpu_torch.core import registration as treg
 from imagestitch_tpu_torch.core.registration import PairRegistration
+from imagestitch_tpu_torch.io import codec, prefetch
 from imagestitch_tpu_torch.io.dataset import ImageBatch
-from imagestitch_tpu_torch.utils import profiling
+from imagestitch_tpu_torch.utils import profiling, synthetic
 
 UPLOAD = ("UPLOAD_CHUNKS", "UPLOAD_CHUNKS_REUSED", "UPLOAD_PAGEABLE")
 
@@ -70,8 +74,8 @@ def test_chunk_plan_covers_every_element_once(case):
 
 def test_cpu_target_and_a_tensor_in_place_pass_through():
     """Sent to the CPU, a host array is wrapped without a copy and a CPU
-    tensor is returned as it is, through ``to_device`` and the Stitcher's
-    own route; no upload is counted."""
+    tensor is returned as it is, also to the Stitcher's device; no upload
+    is counted."""
     x = np.random.default_rng(3).integers(0, 256, (2, 9, 11, 3),
                                           dtype=np.uint8)
     t = torch.from_numpy(x.copy())
@@ -81,9 +85,51 @@ def test_cpu_target_and_a_tensor_in_place_pass_through():
         got, torch.from_numpy(x))
     assert device.to_device(t, "cpu") is t
     st = Stitcher(StitchConfig(), device="cpu")
-    assert st._to_device(t) is t
-    assert torch.equal(st._to_device(x), t)
+    assert device.to_device(t, st.device) is t
+    assert torch.equal(device.to_device(x, st.device), t)
     assert _delta(before) == dict.fromkeys(UPLOAD, 0)
+
+
+def test_loaders_and_registrars_send_host_frames_through_to_device(
+        tmp_path, monkeypatch):
+    """Each chunk of both pipelined loaders, under the ``ingest.upload``
+    span, and the numpy frames a registrar is given, go to their device
+    by ``device.to_device``; a tensor stays where it lies."""
+    gray = synthetic.sequence(4, (96, 128), [(0.0, 0.0), (0.0, 60.5),
+                                             (0.0, 121.0)])[0]
+    files = [str(tmp_path / f"{k}.png") for k in range(len(gray))]
+    for f, im in zip(files, gray):
+        codec.imwrite(f, im)
+    sent, real = [], device.to_device
+
+    def spy(x, dev):
+        sent.append((type(x), tuple(x.shape), torch.device(dev)))
+        return real(x, dev)
+
+    monkeypatch.setattr(device, "to_device", spy)
+    chunks = [(np.ndarray, (2, 96, 128), torch.device("cpu")),
+              (np.ndarray, (1, 96, 128), torch.device("cpu"))]
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        ns = profiling.INGEST_UPLOAD_NS
+        batch = prefetch.load_batch_pipelined(files, False, chunk_frames=2,
+                                              device="cpu")
+        assert sent == chunks and profiling.INGEST_UPLOAD_NS > ns
+        np.testing.assert_array_equal(batch.gray.numpy(), gray)
+        sent.clear()
+        cfg = StitchConfig(features=FeatureConfig(max_keypoints=64))
+        _, gray_dev, _ = prefetch.pooled_features_pipelined(
+            files, cfg, chunk_frames=2, device="cpu")
+        assert sent == chunks
+        np.testing.assert_array_equal(gray_dev.numpy(), gray)
+    finally:
+        torch.set_num_threads(n)
+    sent.clear()
+    got = treg._as_images(gray, "cpu", "test")
+    assert sent == [(np.ndarray, gray.shape, torch.device("cpu"))]
+    assert treg._as_images(got, "cpu", "test") is got and len(sent) == 1
+    np.testing.assert_array_equal(got.numpy(), gray)
 
 
 def _need_card():

@@ -6,8 +6,8 @@
 needs a CUDA card.  For a 1.34 GB color batch (89 x 1936 x 2584 x 3
 uint8, the dendritic grid's frames) and its 0.45 GB gray batch, it times:
 
-- ``pageable``: ``torch.from_numpy(host).to("cuda")`` (what
-  ``Stitcher._to_device`` did before the staging ring);
+- ``pageable``: ``torch.from_numpy(host).to("cuda")`` (the Stitcher's
+  route before the staging ring);
 - ``pinned_whole``: a page-locked buffer of the whole batch, made once,
   filled from the host array with ``copy_``, then one non-blocking copy
   to the card (``fill_ms`` the fill alone, ``dma_ms`` the copy alone by
