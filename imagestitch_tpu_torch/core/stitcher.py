@@ -304,9 +304,11 @@ class Stitcher:
         On the gray pooled ``feature_incre`` path (no strict-ROI detection,
         no enhancement) without checkpoints the decode overlaps the pool
         itself (io/prefetch.register_sequence_pipelined);
-        the other strategies register the loaded batch.  A mesh of two or
-        more shards keeps the frames on the host, for the sharded paths to
-        place."""
+        the other strategies register the loaded batch.  Color frames
+        reach the device once, at ingest, with their gray made there; with
+        ``stream_output`` the host keeps them too, for the host composers.
+        A mesh of two or more shards keeps the frames on the host, for the
+        sharded paths to place."""
         from ..io import prefetch
         cfg = self.cfg
         if (cfg.registration == "feature_incre" and not self._sharded()
@@ -322,7 +324,7 @@ class Stitcher:
             return self.stitch_batch(batch, recs=recs)
         return self.stitch_batch(prefetch.load_batch_pipelined(
             files, cfg.color_mode, to_device=not self._sharded(),
-            device=self.device))
+            host_color=cfg.stream_output, device=self.device))
 
     # -- dataset orchestration (L4) ----------------------------------------
 

@@ -5,7 +5,8 @@ thread decodes chunk k+1 while chunk k is copied to the device and pooled.
 Each chunk goes to the device by ``device.to_device``: to a card through
 its page-locked staging ring, whose copies the current stream waits on
 before the pool reads the chunk.  The pool is per frame, so chunking
-changes no record.
+changes no record.  Color files bound for a device go up once as color,
+and their gray is made there from it.
 
 The JAX package's XLA warm-ups (``_warm_pool_programs_async``,
 ``_warm_replay``) have no counterpart: PyTorch runs eagerly and the CUDA
@@ -28,19 +29,26 @@ class ChunkPrefetcher:
     """One-chunk-lookahead decoded-batch iterator (double buffering).
 
     Yields ``ImageBatch`` chunks of ``chunk_frames`` files; while the caller
-    processes chunk k, the worker thread decodes chunk k+1.
+    processes chunk k, the worker thread decodes chunk k+1.  In color mode
+    without ``host_gray`` the worker makes no gray (``dataset.load_color``):
+    each chunk's ``gray`` is None.
     """
 
     def __init__(self, files: Sequence[str], color_mode: bool = False,
-                 chunk_frames: int = 16):
+                 chunk_frames: int = 16, *, host_gray: bool = True):
         self._files = list(files)
         self._color = color_mode
         self._chunk = max(chunk_frames, 2)
+        self._host_gray = host_gray
 
     def __iter__(self) -> Iterator[dataset.ImageBatch]:
         spans = [(s, min(s + self._chunk, len(self._files)))
                  for s in range(0, len(self._files), self._chunk)]
-        load = lambda s, e: dataset.load_batch(self._files[s:e], self._color)
+        if self._color and not self._host_gray:
+            load = lambda s, e: dataset.load_color(self._files[s:e])
+        else:
+            load = lambda s, e: dataset.load_batch(self._files[s:e],
+                                                   self._color)
         with ThreadPoolExecutor(max_workers=1) as pool:
             fut = pool.submit(load, *spans[0])
             for k in range(len(spans)):
@@ -96,20 +104,41 @@ def pooled_features_pipelined(files: Sequence[str], cfg,
 
 def load_batch_pipelined(files: Sequence[str], color_mode: bool,
                          to_device: bool = True, chunk_frames: int = 16,
-                         *, device="cuda") -> dataset.ImageBatch:
+                         *, host_color: bool = False,
+                         device="cuda") -> dataset.ImageBatch:
     """``dataset.load_batch`` with decode(k+1) ∥ copy(k): with
-    ``to_device`` the gray frames land on ``device`` (the card unless the
-    caller passes ``device="cpu"``), else they stay on the host as numpy;
-    color frames (composition input) stay on the host."""
+    ``to_device`` the frames land on ``device`` (the card unless the
+    caller passes ``device="cpu"``), else they stay on the host as numpy.
+
+    In color mode with ``to_device`` the worker decodes color alone; each
+    chunk's color goes to ``device`` once and its gray is made there
+    (``dataset.bgr_to_gray_tensor``: the host rule's bits), so ``gray``
+    and ``color`` are both device tensors.  With ``host_color`` the color
+    chunks are also kept and joined on the host, and ``color`` is that
+    numpy batch (the streamed-output composers' input).  Counts
+    ``INGEST_GRAY_FRAMES`` and, of them, ``INGEST_GRAY_CARD``, the frames
+    whose gray was made on the device."""
     if to_device:
         device = device_mod.resolve_device(device, "load_batch_pipelined")
+    on_device = color_mode and to_device
     gray_chunks, color_chunks, all_files = [], [], []
     for batch in ChunkPrefetcher(files, color_mode=color_mode,
-                                 chunk_frames=chunk_frames):
-        gray_chunks.append(_upload(batch.gray, device) if to_device
-                           else batch.gray)
+                                 chunk_frames=chunk_frames,
+                                 host_gray=not on_device):
+        n = len(batch.files)
+        if on_device:
+            color = _upload(batch.color, device)
+            with profiling.span("ingest.gray"):
+                gray_chunks.append(dataset.bgr_to_gray_tensor(color))
+            profiling.count("INGEST_GRAY_CARD", n)
+            color_chunks.append(batch.color if host_color else color)
+        else:
+            gray_chunks.append(_upload(batch.gray, device) if to_device
+                               else batch.gray)
+            if color_mode:
+                color_chunks.append(batch.color)
         if color_mode:
-            color_chunks.append(batch.color)
+            profiling.count("INGEST_GRAY_FRAMES", n)
         all_files.extend(batch.files)
     with profiling.span("ingest.concat"):
         return dataset.ImageBatch(

@@ -48,11 +48,17 @@ COMPOSE_READBACK_PAGEABLE = 0
 UPLOAD_CHUNKS = 0
 UPLOAD_CHUNKS_REUSED = 0
 UPLOAD_PAGEABLE = 0
+#: color frames whose gray the pipelined ingest made
+#: (``io/prefetch.load_batch_pipelined``); of them, those made on a device
+#: from the uploaded color (``io/dataset.bgr_to_gray_tensor``)
+INGEST_GRAY_FRAMES = 0
+INGEST_GRAY_CARD = 0
 #: resizes of an expanded multiband level to an odd finer level
 #: (``ops/fusion/pyramid._expand_to``)
 COMPOSE_MULTIBAND_RESIZES = 0
 # host nanoseconds of each span, named after it (see ``span``); the ingest
-# decode and gray run on the decode worker thread, the rest on the caller's
+# decode runs on the decode worker thread, and the gray there where it is
+# made on the host; the rest run on the caller's
 INGEST_DECODE_NS = 0
 INGEST_GRAY_NS = 0
 INGEST_WAIT_NS = 0

@@ -108,18 +108,35 @@ def test_chunk_prefetcher_covers_every_file_in_order(frames, tmp_path):
     assert native_loader.probe_dims(files[0]) == (H, W)
 
 
-@pytest.mark.parametrize("color", [False, True])
-def test_load_batch_pipelined_matches_load_batch(frames, tmp_path, color):
+@pytest.mark.parametrize("color,to_device,host_color", [
+    (False, True, False), (True, True, False), (True, False, False),
+    (True, True, True)], ids=["gray", "color", "color-host", "host-color"])
+def test_load_batch_pipelined_matches_load_batch(frames, tmp_path, color,
+                                                 to_device, host_color):
+    """The batch equals ``load_batch``'s.  Color bound for a device comes
+    back as tensors, the gray made from the uploaded color (counted in
+    ``INGEST_GRAY_CARD``), or with ``host_color`` the color as numpy;
+    without ``to_device`` both stay numpy, the gray made on the host."""
     files = _write(tmp_path, frames[1] if color else frames[0], "png")
-    got = prefetch.load_batch_pipelined(files, color, chunk_frames=2,
-                                        device="cpu")
+    before = (profiling.INGEST_GRAY_FRAMES, profiling.INGEST_GRAY_CARD)
+    got = prefetch.load_batch_pipelined(files, color, to_device,
+                                        chunk_frames=2,
+                                        host_color=host_color, device="cpu")
+    counted = (profiling.INGEST_GRAY_FRAMES - before[0],
+               profiling.INGEST_GRAY_CARD - before[1])
     ref = dataset.load_batch(files, color)
-    assert got.files == files and isinstance(got.gray, torch.Tensor)
-    np.testing.assert_array_equal(got.gray.numpy(), ref.gray)
+    assert got.files == files
+    assert isinstance(got.gray, torch.Tensor if to_device else np.ndarray)
+    np.testing.assert_array_equal(np.asarray(got.gray), ref.gray)
     if color:
-        np.testing.assert_array_equal(got.color, ref.color)
+        on_device = to_device and not host_color
+        assert isinstance(got.color,
+                          torch.Tensor if on_device else np.ndarray)
+        np.testing.assert_array_equal(np.asarray(got.color), ref.color)
+        assert counted == (len(files), len(files) if to_device else 0)
     else:
         assert got.color is None
+        assert counted == (0, 0)
 
 
 def _cfg():

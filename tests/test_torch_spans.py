@@ -117,12 +117,16 @@ def test_layer_counters_of_stitch_batch(color, batch_run, registration):
 
 def test_ingest_counters_of_stitch_files(files_run, batch_run):
     """Decode, gray, the wait on the decode worker, the upload and the
-    join each rise; registration and composition count as they do from
-    decoded frames."""
+    join each rise, and every frame's gray is made on the device;
+    registration and composition count as they do from decoded frames,
+    but for the compose upload: the color frames went up at ingest."""
     res, d, _ = files_run
     assert d["FRAMES"] == 5
+    assert d["INGEST_GRAY_FRAMES"] == d["INGEST_GRAY_CARD"] == 5
     assert all(d[k] > 0 for k in INGEST), d
-    assert all(d[k] > 0 for k in REGISTER + COMPOSE), d
+    assert d["COMPOSE_UPLOAD_NS"] == 0
+    assert all(d[k] > 0 for k in REGISTER + COMPOSE
+               if k != "COMPOSE_UPLOAD_NS"), d
     assert d["REGISTER_DISPATCHES"] == batch_run[1]["REGISTER_DISPATCHES"]
     assert [r.offsets for r in res] == [r.offsets for r in batch_run[0]]
 
@@ -146,8 +150,9 @@ def test_no_annotation_with_the_profiler_off(batch_run, files_run):
 
 def test_trace_holds_the_main_thread_spans(color, tmp_path):
     """Under ``utils.profiling.trace`` the Chrome trace names every span
-    the main thread entered; decode and gray, counted on the decode
-    worker, are not annotated."""
+    the main thread entered, the gray made on the device included;
+    decode, counted on the decode worker, is not annotated, and compose
+    uploads nothing."""
     files = [str(tmp_path / f"{k:02d}.png") for k in range(len(color))]
     for f, im in zip(files, color):
         codec.imwrite(f, im)
@@ -159,10 +164,10 @@ def test_trace_holds_the_main_thread_spans(color, tmp_path):
     names = {e.get("name", "") for e in events}
     spans = {n[len(profiling.PREFIX):] for n in names
              if n.startswith(profiling.PREFIX)}
-    assert spans == {"ingest.wait", "ingest.upload", "ingest.concat",
-                     "register", "register.upload", "register.pool",
-                     "register.match", "register.fallback", "compose",
-                     "compose.upload", "compose.fuse", "compose.readback"}
+    assert spans == {"ingest.wait", "ingest.upload", "ingest.gray",
+                     "ingest.concat", "register", "register.upload",
+                     "register.pool", "register.match", "register.fallback",
+                     "compose", "compose.fuse", "compose.readback"}
 
 
 class _NoSpan:
